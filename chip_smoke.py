@@ -2,23 +2,41 @@
 """Smoke run of the torch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. build kernel K1 (repkiller_tpu_torch/csrc/banded_gotoh.cu) with nvcc;
-  2. K1 == its plain torch version (extend/banded.direction_plain), exactly,
-     on random seeds at bands 4, 8, 15, 16, in the phase-1 shape
+  1. build kernels K1 (csrc/banded_gotoh.cu) and K2 (csrc/ungapped_xdrop.cu)
+     with nvcc, both at once; print each one's ptxas register and spill
+     lines;
+  2. K2 == its plain torch version (extend/ungapped.direction_plain),
+     exactly, on random seeds at E = 64, 256 and 2048, x_drop 12 and 40,
+     both directions;
+  3. K1 == its plain torch version (extend/banded.direction_plain),
+     exactly, on random seeds at bands 4, 8, 15, 16 in the phase-1 shape
      (192 rows, jcap 192 + band) and the full shapes (512 and 2048 rows,
-     jcap = rows);
-  3. the golden 30 kb test: CSV and BED byte for byte through api.compare;
-  4. the headline self-comparison (bench.py's 4.19 Mbp synthetic genome,
-     k=12, strands fr, banded): 139,287 fragments and hit totals
+     jcap = rows), and at bands 40 and 100 (rows wider than the register
+     kernels) in the phase-1 shape and at 2048 rows;
+  4. the golden 30 kb test: CSV and BED byte for byte through api.compare,
+     and through ``python -m repkiller_tpu_torch.cli run``;
+  5. the banded headline (bench.py's 4.19 Mbp synthetic genome, k=12,
+     strands fr, banded): 139,287 fragments and hit totals
      [543009, 535532]; wall time and per-stage times of warm runs; device
-     time by kernel and the device's idle share from torch.profiler;
-  5. K1 == the plain version, exactly, on the headline's own seed sets:
-     phase 1 over every seed of both strands in both directions, then the
-     full-depth pass (2048 rows) over the seeds phase 1 left alive; K1's
-     time against the plain version's.
+     time by kernel and the device's idle share from torch.profiler; then
+     K1 == the plain version on the headline's own seed sets (phase 1 over
+     every seed, then the 2048-row pass over the seeds phase 1 left alive)
+     and K1's time against the plain version's;
+  6. the ungapped headline (the same genome, extend_mode "ungapped", the
+     tool's default): 976 fragments, hit totals [543009, 535532], seeds
+     [397907, 400603]; the same walls, stages and profile; then K2 == the
+     plain version on every seed set the pipeline launched K2 with (both
+     strands, both directions, anchor and survivor passes, device n_live)
+     and K2's time against the plain version's;
+  7. the pairwise strain pair of benchmarks/run_config3.py at 4.6 Mbp
+     (config #3) through api.compare, banded and ungapped: fragment
+     counts, hit totals and seeds against the JAX package's records, walls,
+     stage split and peak memory.
 
-Informational lines come first; the last two lines are the kernels' JSON
-record and the device's JSON record. Imports nothing of JAX.
+Every main-path run (5, 6 and both runs of 7) sets the kernels' launch
+counts to 0 just before it and reads them just after. Informational lines
+come first; the last two lines are the kernels' JSON record and the
+device's JSON record. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +47,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,14 +57,15 @@ import torch
 from repkiller_tpu.config import Config
 from repkiller_tpu.utils import synth
 from repkiller_tpu_torch import api, device as tdevice
-from repkiller_tpu_torch.extend import _cuda
-from repkiller_tpu_torch.extend.banded import direction_plain
+from repkiller_tpu_torch.extend import _cuda, banded, ungapped
 from repkiller_tpu_torch.utils.scan import partition_live
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 GOLDEN_CFG = Config(k=12, strands="fr", hit_capacity=1 << 14, max_extend=512,
                     extend_mode="banded", band=8)
+GOLDEN_FLAGS = ["--k", "12", "--strands", "fr", "--hit-capacity", "16384",
+                "--max-extend", "512", "--extend-mode", "banded", "--band", "8"]
 # bench.py:71-78: the genome, families and Config of the headline workload
 HEADLINE_SIZE = 1 << 22
 HEADLINE_FAMS = [(1024, 6, 0.02, 2), (768, 5, 0.05, 1), (512, 7, 0.0, 0),
@@ -53,9 +73,24 @@ HEADLINE_FAMS = [(1024, 6, 0.02, 2), (768, 5, 0.05, 1), (512, 7, 0.0, 0),
 HEADLINE_CFG = Config(k=12, strands="fr", extend_mode="banded",
                       hit_capacity=1 << 20, seed_capacity=1 << 19,
                       max_extend=2048)
-HEADLINE_FRAGS = 139287
+UNGAPPED_CFG = HEADLINE_CFG.replace(extend_mode="ungapped")
+# Expected outputs. Banded headline: BENCH_r05 (the JAX package on a TPU);
+# seeding does not depend on the extend mode, so the hits and seeds are
+# shared. Ungapped headline and config #3 ungapped: the JAX package on the
+# CPU (JAX_PLATFORMS=cpu, repkiller_tpu.device.compare_staged on the same
+# inputs). Config #3 banded: BASELINE.md:69,82 (the JAX package on a TPU).
 HEADLINE_HITS = [543009, 535532]
+HEADLINE_SEEDS = [397907, 400603]
+HEADLINE_FRAGS = {"banded": 139287, "ungapped": 976}
+# benchmarks/run_config3.py: the strain pair and Config of config #3
+PAIR_SIZE, PAIR_SEED = 4_600_000, 77
+PAIR_CFG = Config(k=12, strands="fr", extend_mode="banded",
+                  hit_capacity=1 << 23, seed_capacity=1 << 21, max_extend=2048)
+PAIR_HITS = [5357196, 1275396]
+PAIR_SEEDS = [1101683, 957924]
+PAIR_FRAGS = {"banded": 335570, "ungapped": 2290}
 PHASE1_ROWS = 192
+KERNELS = {"banded": _cuda.banded_gotoh, "ungapped": _cuda.ungapped_xdrop}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -79,24 +114,59 @@ def card(gpu: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def make_strain_pair(size: int, seed: int):
+    """benchmarks/run_config3.py's generator, copied: strain B is strain A
+    with 1% SNPs, a segment swap and a 5 kb insertion."""
+    g = synth.plant(size, [(1024, 5, 0.02, 1), (512, 6, 0.0, 2)], seed=seed)
+    a = g.codes
+    rng = np.random.default_rng(seed + 1)
+    b = a.copy()
+    snp = rng.random(b.shape[0]) < 0.01
+    b[snp] = (b[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+    q = size // 4
+    b = np.concatenate([b[q : 2 * q], b[:q], b[2 * q :]])
+    ins = rng.integers(0, 4, 5000).astype(np.uint8)
+    b = np.concatenate([b[: size // 2], ins, b[size // 2 :]])
+    return a, b
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {mode: fn.launches for mode, fn in KERNELS.items()}
+
+
 def kernel_args(cfg: Config, E: int, jcap: int, base_off: int, step: int):
     return (base_off, step, cfg.match, cfg.mismatch, cfg.x_drop, E, cfg.band,
             cfg.gap_open, cfg.gap_extend, jcap)
 
 
-def compare_kernel(inputs, args, n_live):
-    """Run K1 and the plain version on the same inputs -> (max |diff|,
-    K1's outputs)."""
-    got = _cuda.banded_gotoh(*inputs, *args, n_live)
-    want = direction_plain(*inputs, *args, n_live)
+def compare_kernel(kernel, plain, inputs, args, n_live):
+    """Run a kernel and its plain version on the same inputs -> (max
+    |diff|, the kernel's outputs)."""
+    got = kernel(*inputs, *args, n_live)
+    want = plain(*inputs, *args, n_live)
     torch.cuda.synchronize()
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
               for g, w in zip(got, want))
     if err:
         bad = torch.nonzero(torch.stack(got) != torch.stack(want))[:5].tolist()
-        raise RuntimeError(f"K1 != plain for args {args}: max |diff| {err}, "
-                           f"first (output, seed) pairs {bad}")
+        raise RuntimeError(f"{kernel.__name__} != plain for args {args}: max "
+                           f"|diff| {err}, first (output, seed) pairs {bad}")
     return err, got
+
+
+def compare_k1(inputs, args, n_live):
+    return compare_kernel(_cuda.banded_gotoh, banded.direction_plain, inputs,
+                          args, n_live)
+
+
+def compare_k2(inputs, args, n_live):
+    return compare_kernel(_cuda.ungapped_xdrop, ungapped.direction_plain,
+                          inputs, args, n_live)
 
 
 def random_case(seed: int, n: int, L: int, dev):
@@ -123,25 +193,46 @@ def random_case(seed: int, n: int, L: int, dev):
 
 def phase_build():
     t0 = time.perf_counter()
-    so = _cuda.build()
-    print(f"# build: {so.name} in {time.perf_counter() - t0:.3f} s")
-    log = Path(f"{so}.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"#   ptxas: {line.strip()}")
+    libs = _cuda.build(_cuda.BANDED_SOURCE, _cuda.UNGAPPED_SOURCE)
+    print(f"# build: {', '.join(so.name for so in libs)} in "
+          f"{time.perf_counter() - t0:.3f} s (one nvcc each, together)")
+    for so in libs:
+        log = Path(f"{so}.log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    print(f"#   {so.name.split('-')[0]} ptxas: {line.strip()}")
 
 
-def phase_kernel_vs_plain(dev) -> int:
+def phase_k2_vs_plain(dev) -> int:
     worst = 0
-    for band in (4, 8, 15, 16):
+    for x_drop in (12, 40):
+        cfg = UNGAPPED_CFG.replace(x_drop=x_drop)
+        inputs, n_live = random_case(100 + x_drop, 4096, 60000, dev)
+        for E in (64, 256, 2048):
+            for base_off, step in ((cfg.k, +1), (-1, -1)):
+                args = (base_off, step, cfg.match, cfg.mismatch, x_drop, E)
+                err, got = compare_k2(inputs, args, n_live)
+                worst = max(worst, err)
+                print(f"# K2 == plain: x_drop {x_drop} E {E} step {step:+d}: "
+                      f"exact ({int((got[0] == E).sum())} seeds at the cap, "
+                      f"longest {int(got[0].max())})")
+    return worst
+
+
+def phase_k1_vs_plain(dev) -> int:
+    worst = 0
+    shapes = {b: ((PHASE1_ROWS, PHASE1_ROWS + b), (512, 512), (2048, 2048))
+              for b in (4, 8, 15, 16)}
+    shapes.update({b: ((PHASE1_ROWS, PHASE1_ROWS + b), (2048, 2048))
+                   for b in (40, 100)})
+    for band, cases in shapes.items():
         cfg = HEADLINE_CFG.replace(band=band)
         inputs, n_live = random_case(band, 4096, 60000, dev)
-        for E, jcap in ((PHASE1_ROWS, PHASE1_ROWS + band), (512, 512),
-                        (2048, 2048)):
+        for E, jcap in cases:
             for base_off, step in ((cfg.k, +1), (-1, -1)):
                 args = kernel_args(cfg, E, jcap, base_off, step)
-                err, got = compare_kernel(inputs, args, n_live)
+                err, got = compare_k1(inputs, args, n_live)
                 worst = max(worst, err)
                 print(f"# K1 == plain: band {band} E {E} jcap {jcap} "
                       f"step {step:+d}: exact ({int(got[4].sum())} alive "
@@ -164,59 +255,82 @@ def phase_golden():
           f"fragments, {res.n_families} families)")
 
 
-def phase_headline(codes: np.ndarray, cx: torch.Tensor, smi: str):
-    # first run: device-side counts against the pinned record
-    t0 = time.perf_counter()
-    out, n_frags, totals, n_seeds = tdevice.compare_fn(cx, HEADLINE_CFG)
-    torch.cuda.synchronize()
-    print(f"# headline first run (device part, incl. load): "
+def phase_cli():
+    """The CLI in its own process on the card; its CSV and BED against the
+    golden files."""
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "golden30k")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repkiller_tpu_torch.cli", "run",
+             str(GOLDEN / "golden30k.fasta"), "-o", prefix, "--device", "cuda",
+             *GOLDEN_FLAGS], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, f"the CLI failed: {proc.stderr[-2000:]}")
+        for suffix in (".frags.csv", ".repeats.bed"):
+            check(Path(prefix + suffix).read_bytes()
+                  == (GOLDEN / f"golden30k{suffix}").read_bytes(),
+                  f"the CLI's {suffix} differs from the golden file")
+        metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"# CLI run on the card: golden CSV and BED byte-identical; "
+          f"{metrics['fragments']} fragments, process wall "
           f"{time.perf_counter() - t0:.3f} s")
-    check(int(n_frags) == HEADLINE_FRAGS,
-          f"headline fragments {int(n_frags)} != {HEADLINE_FRAGS}")
+
+
+def phase_headline(codes: np.ndarray, cx: torch.Tensor, cfg: Config, smi: str):
+    """Device-side counts against the records, then three warm runs through
+    device.compare, the third one counted -> that run's launch counts."""
+    mode = cfg.extend_mode
+    t0 = time.perf_counter()
+    out, n_frags, totals, n_seeds = tdevice.compare_fn(cx, None, cfg)
+    torch.cuda.synchronize()
+    print(f"# {mode} headline first run (device part, incl. load): "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(int(n_frags) == HEADLINE_FRAGS[mode],
+          f"{mode} headline fragments {int(n_frags)} != {HEADLINE_FRAGS[mode]}")
     check(totals.tolist() == HEADLINE_HITS,
-          f"headline hit totals {totals.tolist()} != {HEADLINE_HITS}")
-    print(f"# headline: {int(n_frags)} fragments, hit totals "
+          f"{mode} headline hit totals {totals.tolist()} != {HEADLINE_HITS}")
+    check(n_seeds.tolist() == HEADLINE_SEEDS,
+          f"{mode} headline seeds {n_seeds.tolist()} != {HEADLINE_SEEDS}")
+    print(f"# {mode} headline: {int(n_frags)} fragments, hit totals "
           f"{totals.tolist()}, seeds {n_seeds.tolist()}")
 
-    # warm runs through the entry point, the third one counted
     walls, stages = [], []
     for r in range(3):
         if r == 2:
-            _cuda.banded_gotoh.launches = 0
+            reset_launches()
             torch.cuda.reset_peak_memory_stats()
         timings = {}
         t0 = time.perf_counter()
-        frag = tdevice.compare(codes, None, HEADLINE_CFG, "cuda",
-                               timings=timings)
+        frag = tdevice.compare(codes, None, cfg, "cuda", timings=timings)
         walls.append(time.perf_counter() - t0)
         stages.append(timings)
-        check(frag["xStart"].shape[0] == HEADLINE_FRAGS,
-              f"headline fragments {frag['xStart'].shape[0]}")
-        check(all(np.isfinite(v).all() and v.shape == (HEADLINE_FRAGS,)
-                  for v in frag.values()), "headline output malformed")
-    launches = _cuda.banded_gotoh.launches
+        n = HEADLINE_FRAGS[mode]
+        check(frag["xStart"].shape[0] == n,
+              f"{mode} headline fragments {frag['xStart'].shape[0]}")
+        check(all(np.isfinite(v).all() and v.shape == (n,)
+                  for v in frag.values()), f"{mode} headline output malformed")
+    counted = launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"# headline warm walls (s): {[round(w, 6) for w in walls]}, "
+    print(f"# {mode} headline warm walls (s): {[round(w, 6) for w in walls]}, "
           f"median {statistics.median(walls):.6f} s on {smi}")
     for name in stages[0]:
         vals = [s[name] for s in stages]
         print(f"#   stage {name}: {[round(v, 6) for v in vals]} s")
-    print(f"# headline peak device memory {peak:.3f} GiB; K1 launches in the "
-          f"counted run: {launches}; families {len(np.unique(frag['group']))}")
-    check(launches > 0, "the headline did not launch K1")
-    return launches
+    print(f"# {mode} headline peak device memory {peak:.3f} GiB; launches in "
+          f"the counted run: {counted}; families {len(np.unique(frag['group']))}")
+    return counted
 
 
-def phase_profile(cx: torch.Tensor, smi: str):
+def phase_profile(cx: torch.Tensor, cfg: Config, smi: str):
     """Device time by kernel name and the device's idle share over one
-    profiled run of the device part of the headline (host clustering
-    excluded); profiling adds host overhead, so the idle share is an upper
-    bound."""
+    profiled run of the device part (host clustering excluded); profiling
+    adds host overhead, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tdevice.compare_fn(cx, HEADLINE_CFG)
+        tdevice.compare_fn(cx, None, cfg)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -225,9 +339,9 @@ def phase_profile(cx: torch.Tensor, smi: str):
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     check(busy_us > 0, "the profiler saw no device activity")
-    print(f"# profiled device part: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f} "
-          f"on {smi}")
+    print(f"# {cfg.extend_mode} profiled device part: wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle "
+          f"share {1 - busy_us / wall_us:.4f} on {smi}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"#   {us / 1e3:9.3f} ms  {name[:100]}")
 
@@ -244,14 +358,15 @@ def time_cuda(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def phase_headline_sets(cx: torch.Tensor, smi: str):
-    """K1 == the plain version on the headline's own seed sets, for both
-    strands and both directions: phase 1 (192 rows, jcap 192 + band) over
-    every seed, then the full-depth pass (max_extend rows, jcap max_extend)
-    over the seeds phase 1 left alive, compacted to the front with a device
-    ``n_live`` as the pipeline's re-run has them. That set holds the
-    re-run's own, which also drops the seeds their anchor covers. Times K1
-    and the plain version on strand f, right direction, in both passes."""
+def phase_k1_headline_sets(cx: torch.Tensor, smi: str):
+    """K1 == the plain version on the banded headline's own seed sets, for
+    both strands and both directions: phase 1 (192 rows, jcap 192 + band)
+    over every seed, then the full-depth pass (max_extend rows, jcap
+    max_extend) over the seeds phase 1 left alive, compacted to the front
+    with a device ``n_live`` as the pipeline's re-run has them. That set
+    holds the re-run's own, which also drops the seeds their anchor
+    covers. Times K1 and the plain version on strand f, right direction,
+    in both passes."""
     cfg = HEADLINE_CFG
     worst, timed = 0, []
     for strand, (spx, spy, sv, n_seeds, _) in tdevice.self_seeds_fn(cx, cfg).items():
@@ -260,13 +375,13 @@ def phase_headline_sets(cx: torch.Tensor, smi: str):
             p1 = ((spx, spy, sv, cx, cy),
                   kernel_args(cfg, PHASE1_ROWS, PHASE1_ROWS + cfg.band,
                               base_off, step), n_seeds)
-            err1, got = compare_kernel(*p1)
+            err1, got = compare_k1(*p1)
             need = sv & (got[4] == 1)
             order, _, n2 = partition_live(need)
             p2 = ((spx[order], spy[order], need[order], cx, cy),
                   kernel_args(cfg, cfg.max_extend, cfg.max_extend, base_off,
                               step), n2)
-            err2, got2 = compare_kernel(*p2)
+            err2, got2 = compare_k1(*p2)
             worst = max(worst, err1, err2)
             print(f"# K1 == plain on the headline: strand {'fr'[strand]} step "
                   f"{step:+d}: phase 1 exact ({int(n_seeds)} live seeds of "
@@ -276,12 +391,100 @@ def phase_headline_sets(cx: torch.Tensor, smi: str):
                 timed = [p1, p2]
     (ms, plain_ms), (ms2, plain_ms2) = [
         (time_cuda(lambda: _cuda.banded_gotoh(*inp, *args, nl), 20),
-         time_cuda(lambda: direction_plain(*inp, *args, nl), 2))
+         time_cuda(lambda: banded.direction_plain(*inp, *args, nl), 2))
         for inp, args, nl in timed]
     print(f"# K1 on the headline, strand f, right direction: phase 1 kernel "
           f"{ms:.6f} ms, plain {plain_ms:.6f} ms; full depth kernel "
           f"{ms2:.6f} ms, plain {plain_ms2:.6f} ms on {smi}")
     return worst, ms, plain_ms
+
+
+def phase_k2_headline_sets(cx: torch.Tensor, smi: str):
+    """K2 == the plain version on every seed set the ungapped headline
+    launches K2 with: the pipeline runs once with the kernel's wrapper
+    recording its arguments (both strands; right and left; the compacted
+    anchor pass and survivor pass, each with a device ``n_live``), then
+    each recorded launch is held against the plain version. Times K2 and
+    the plain version on the first launch (strand f, anchors, right)."""
+    kernel = _cuda.ungapped_xdrop
+    recorded = []
+
+    def recording(*args):
+        recorded.append(args)
+        return kernel(*args)
+
+    # the wrapper counts into the module attribute of its name, which is
+    # this recorder while it stands in; these launches are not the counted run
+    recording.launches = 0
+    _cuda.ungapped_xdrop = recording
+    try:
+        tdevice.compare_fn(cx, None, UNGAPPED_CFG)
+    finally:
+        _cuda.ungapped_xdrop = kernel
+    check(len(recorded) == 8, f"{len(recorded)} K2 launches, expected 8: 2 "
+          "strands x (anchors, survivors) x 2 directions")
+    worst = 0
+    for i, args in enumerate(recorded):
+        inputs, rest, n_live = args[:5], args[5:-1], args[-1]
+        check(torch.is_tensor(n_live) and n_live.is_cuda,
+              "the pipeline passed K2 a host n_live")
+        err, got = compare_k2(inputs, rest, n_live)
+        worst = max(worst, err)
+        print(f"# K2 == plain on the ungapped headline, launch {i} (strand "
+              f"{'fr'[i // 4]}, {('anchors', 'survivors')[i // 2 % 2]}, step "
+              f"{rest[1]:+d}): exact ({int(n_live)} live of {inputs[0].shape[0]}"
+              f", longest {int(got[0].max())})")
+    args = recorded[0]
+    ms = time_cuda(lambda: kernel(*args), 20)
+    plain_ms = time_cuda(lambda: ungapped.direction_plain(*args), 3)
+    print(f"# K2 on the ungapped headline, strand f, anchors, right "
+          f"direction: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms on {smi}")
+    return worst, ms, plain_ms
+
+
+def phase_pairwise(smi: str) -> dict:
+    """Config #3 at full width: the device part once for its counts and
+    stage split, then api.compare (host clustering included) for the
+    output and the end-to-end wall, with launches counted -> the counted
+    launches per mode."""
+    t0 = time.perf_counter()
+    a, b = make_strain_pair(PAIR_SIZE, PAIR_SEED)
+    print(f"# config #3 strain pair: {a.shape[0]} + {b.shape[0]} bp, made in "
+          f"{time.perf_counter() - t0:.3f} s")
+    ca = torch.from_numpy(a.copy()).cuda()
+    cb = torch.from_numpy(b.copy()).cuda()
+    counted = {}
+    for mode in ("banded", "ungapped"):
+        cfg = PAIR_CFG.replace(extend_mode=mode)
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, n_frags, totals, n_seeds = tdevice.compare_fn(ca, cb, cfg, timings)
+        dev_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(totals.tolist() == PAIR_HITS,
+              f"config #3 {mode} hit totals {totals.tolist()} != {PAIR_HITS}")
+        check(n_seeds.tolist() == PAIR_SEEDS,
+              f"config #3 {mode} seeds {n_seeds.tolist()} != {PAIR_SEEDS}")
+        check(int(n_frags) == PAIR_FRAGS[mode],
+              f"config #3 {mode} fragments {int(n_frags)} != {PAIR_FRAGS[mode]}")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = api.compare(a, b, cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        counted[mode] = launches()
+        check(counted[mode][mode] > 0, f"config #3 {mode} launched no kernel")
+        check(res.n_fragments == PAIR_FRAGS[mode] and all(
+            np.isfinite(v).all() and v.shape == (res.n_fragments,)
+            for v in res.frag.values()), f"config #3 {mode} output malformed")
+        print(f"# config #3 {mode}: {res.n_fragments} fragments, "
+              f"{res.n_families} families, hit totals {totals.tolist()}, "
+              f"seeds {n_seeds.tolist()}")
+        print(f"#   device part {dev_wall:.6f} s (first run, stages "
+              f"{ {k: round(v, 6) for k, v in timings.items()} }), "
+              f"api.compare wall {wall:.6f} s, peak device memory "
+              f"{peak:.3f} GiB, launches {counted[mode]} on {smi}")
+    return counted
 
 
 def main() -> int:
@@ -290,24 +493,49 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = card(gpu)
     print(f"# python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
-    err = phase_kernel_vs_plain(dev)
+    err2 = phase_k2_vs_plain(dev)
+    err1 = phase_k1_vs_plain(dev)
     phase_golden()
+    phase_cli()
+
     g = synth.plant(HEADLINE_SIZE, HEADLINE_FAMS, seed=1234)
     cx = torch.from_numpy(g.codes.copy()).to(dev)
-    launches = phase_headline(g.codes, cx, smi)
-    phase_profile(cx, smi)
-    err5, ms, plain_ms = phase_headline_sets(cx, smi)
-    print(json.dumps({"kernels": [{
-        "name": "banded_gotoh", "route": "cuda",
-        "source": "repkiller_tpu_torch/csrc/banded_gotoh.cu",
-        "replaces": "repkiller_tpu/extend/banded_pallas.py:103",
-        "launches": launches, "max_abs_err": max(err, err5),
-        "ms": ms, "plain_ms": plain_ms}]}))
+    k1_counted = phase_headline(g.codes, cx, HEADLINE_CFG, smi)
+    check(k1_counted["banded"] > 0, "the banded headline did not launch K1")
+    phase_profile(cx, HEADLINE_CFG, smi)
+    err1b, k1_ms, k1_plain_ms = phase_k1_headline_sets(cx, smi)
+
+    k2_counted = phase_headline(g.codes, cx, UNGAPPED_CFG, smi)
+    check(k2_counted["ungapped"] > 0 and k2_counted["banded"] == 0,
+          f"the ungapped headline launched {k2_counted}: K2 > 0 and K1 == 0 "
+          "expected")
+    phase_profile(cx, UNGAPPED_CFG, smi)
+    err2b, k2_ms, k2_plain_ms = phase_k2_headline_sets(cx, smi)
+    del cx
+    torch.cuda.empty_cache()
+
+    pair_counted = phase_pairwise(smi)
+    check(pair_counted["ungapped"]["banded"] == 0,
+          "config #3 ungapped launched K1")
+    print(f"# chip_smoke phases took {time.perf_counter() - t_start:.3f} s")
+
+    print(json.dumps({"kernels": [
+        {"name": "banded_gotoh", "route": "cuda",
+         "source": "repkiller_tpu_torch/csrc/banded_gotoh.cu",
+         "replaces": "repkiller_tpu/extend/banded_pallas.py:103",
+         "launches": k1_counted["banded"], "max_abs_err": max(err1, err1b),
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "ungapped_xdrop", "route": "cuda",
+         "source": "repkiller_tpu_torch/csrc/ungapped_xdrop.cu",
+         "replaces": "repkiller_tpu/extend/ungapped_pallas.py:30",
+         "launches": k2_counted["ungapped"], "max_abs_err": max(err2, err2b),
+         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

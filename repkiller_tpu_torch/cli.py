@@ -1,0 +1,151 @@
+"""Command-line driver of the port: ``python -m repkiller_tpu_torch.cli``.
+
+The subcommands and flags are those of ``repkiller_tpu.cli`` (its parser
+is reused), plus ``run --device`` (default ``cuda``; without a GPU that
+raises, pass ``--device cpu`` to run on the CPU):
+
+  run    FASTA (self, or a pair) -> fragments CSV, family summary, repeat
+         intervals BED, optional masked FASTA, and one JSON metrics line
+  group  fragments CSV -> family-annotated CSV, summary and intervals
+
+``--profile DIR`` writes a torch.profiler trace to DIR/trace.json. There
+is one process, so the outputs are written directly. Flags of paths that
+are not ported yet exit with the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+
+from repkiller_tpu.cli import _config_from_args
+from repkiller_tpu.cli import build_parser as _reference_parser
+from repkiller_tpu.report import csv_writer, intervals as report_iv
+from repkiller_tpu.utils.capacity import grow_capacity
+
+from . import api
+
+log = logging.getLogger("repkiller_tpu")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = _reference_parser()
+    p.prog = "python -m repkiller_tpu_torch.cli"
+    sub = next(a for a in p._actions
+               if isinstance(a, argparse._SubParsersAction))
+    sub.choices["run"].add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; raises without a GPU)")
+    return p
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    """Exit for the flags whose paths the port does not have yet."""
+    unported = [
+        (args.backend == "sharded", "--backend sharded", 14),
+        (args.num_processes > 1, "--num-processes > 1", 14),
+        (args.platform is not None, "--platform", 14),
+        (args.host_devices is not None, "--host-devices", 14),
+        (args.keep_intermediates is not None, "--keep-intermediates", 11),
+        (args.stage_timing, "--stage-timing", 15),
+    ]
+    for given, flag, item in unported:
+        if given:
+            raise SystemExit(f"{flag} is not ported to repkiller_tpu_torch "
+                             f"yet: ROADMAP.md section 1 item {item}")
+
+
+@contextlib.contextmanager
+def _profiled(out_dir, device: str):
+    """torch.profiler trace of the block, written to out_dir/trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def cmd_run(args: argparse.Namespace) -> int:
+    _refuse_unported(args)
+    cfg = _config_from_args(args)
+    src_x = sys.stdin.read() if args.fasta_x == "-" else args.fasta_x
+    t0 = time.perf_counter()
+    profile_ctx = (_profiled(args.profile, args.device) if args.profile
+                   else contextlib.nullcontext())
+    with profile_ctx:
+        for attempt in range(args.auto_capacity + 1):
+            try:
+                res = api.compare(src_x, args.fasta_y, cfg,
+                                  backend=args.backend, device=args.device)
+                break
+            except ValueError as e:
+                grown = grow_capacity(cfg, str(e))
+                if grown is None or attempt == args.auto_capacity:
+                    raise
+                log.warning("%s — retrying with %s (attempt %d/%d)",
+                            e, grown[1], attempt + 1, args.auto_capacity)
+                cfg = grown[0]
+    dt = time.perf_counter() - t0
+
+    prefix = args.out_prefix
+    res.write_csv(prefix + ".frags.csv", coords=args.coords)
+    res.write_family_summary(prefix + ".families.csv")
+    res.write_intervals(prefix + ".repeats.bed")
+    if args.mask:
+        with open(prefix + ".masked.fasta", "w") as f:
+            f.write(res.masked_fasta())
+
+    bp = res.x.total_length + (0 if res.self_cmp else res.y.total_length)
+    metrics = {
+        "stage": "run", "wall_s": round(dt, 4), "bp": bp,
+        "bp_per_s": round(bp / dt, 1),
+        "fragments": res.n_fragments, "families": res.n_families,
+        "backend": args.backend,
+    }
+    log.info("run: %s", metrics)
+    print(json.dumps(metrics))
+    if args.metrics_json:
+        with open(args.metrics_json, "a") as f:
+            f.write(json.dumps(metrics) + "\n")
+    return 0
+
+
+def cmd_group(args: argparse.Namespace) -> int:
+    cfg = _config_from_args(args)
+    self_cmp = not args.cross
+    frag = api.group_fragments(args.frags_csv, cfg, self_cmp=self_cmp)
+    prefix = args.out_prefix
+    csv_writer.write_frags_csv(frag, prefix + ".frags.csv")
+    report_iv.write_family_summary(frag, prefix + ".families.csv")
+    report_iv.write_intervals_bed(frag, cfg, prefix + ".repeats.bed",
+                                  self_cmp=self_cmp)
+    n_frag = int(frag["xStart"].shape[0])
+    n_fam = int(np.unique(frag["group"]).shape[0]) if n_frag else 0
+    print(json.dumps({"stage": "group", "fragments": n_frag,
+                      "families": n_fam}))
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(levelname)s %(name)s: %(message)s")
+    args = build_parser().parse_args(argv)
+    if args.cmd == "run":
+        return cmd_run(args)
+    return cmd_group(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,7 +1,9 @@
-"""Single-device self-comparison pipeline (counterpart of
-repkiller_tpu/device.py): codes -> canonical k-mer index -> both strands'
-seed hits -> diagonal thinning -> gated banded extension -> merge/accept,
-as torch ops on one device, then host-side family clustering.
+"""Single-device comparison pipeline (counterpart of
+repkiller_tpu/device.py): codes -> k-mer index -> both strands' seed hits
+-> diagonal thinning -> gated extension -> merge/accept, as torch ops on
+one device, then host-side family clustering. A self-comparison seeds
+from one canonical index; a pairwise comparison joins the sorted index
+of X with that of Y (strand f) or of revcomp(Y) (strand r).
 
 Arrays are sized by the Config's capacities with validity masks; the true
 counts come back so that overflow raises instead of truncating. Output is
@@ -22,8 +24,10 @@ from repkiller_tpu.oracle import pipeline as orc
 
 from .chain.diagonal import extend_gated
 from .chain.merge import merge_accept
+from .index.build import build_index
 from .index.canonical import build_canonical_index
 from .seeds.filter import filter_hits
+from .seeds.join import join_hits
 from .seeds.self_join import join_self_canonical
 
 
@@ -48,11 +52,26 @@ def self_seeds_fn(cx: torch.Tensor, cfg: Config):
     return out
 
 
-def compare_fn(cx: torch.Tensor, cfg: Config, timings: Optional[dict] = None):
-    """Self-comparison of ``cx`` on its device -> (frag, n_frags,
-    total_hits, n_seeds), all tensors. ``timings`` (optional dict) gathers
-    wall seconds per stage ("seeds", "extend", "merge"), each ended by a
-    device synchronisation."""
+def pair_seeds_fn(idx_x, cy_cmp: torch.Tensor, cfg: Config):
+    """Pairwise seeds of one strand: X's sorted index ``idx_x`` joined with
+    that of ``cy_cmp`` (Y, or revcomp(Y) for strand r), then thinned ->
+    (spx, spy, svalid, n_seeds, total_hits). The seeding half of the
+    reference's ``_one_strand``."""
+    kx, pxi, nxv = idx_x
+    ky, pyi, nyv = build_index(cy_cmp, cfg.k)
+    hpx, hpy, hvalid, total = join_hits(
+        kx, pxi, nxv, ky, pyi, nyv, k=cfg.k, max_occ=cfg.max_occ,
+        capacity=cfg.hit_capacity, y_len=cy_cmp.shape[0])
+    return filter_hits(hpx, hpy, hvalid, cfg.min_hit_dist,
+                       out_capacity=cfg.seed_cap) + (total,)
+
+
+def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
+               timings: Optional[dict] = None):
+    """Comparison of ``cx`` against ``cy`` (``None``: against itself) on
+    their device -> (frag, n_frags, total_hits, n_seeds), all tensors.
+    ``timings`` (optional dict) gathers wall seconds per stage ("seeds",
+    "extend", "merge"), each ended by a device synchronisation."""
     def lap(name, t0):
         if timings is None:
             return t0
@@ -63,12 +82,20 @@ def compare_fn(cx: torch.Tensor, cfg: Config, timings: Optional[dict] = None):
         return t1
 
     t = time.perf_counter()
-    seeds = self_seeds_fn(cx, cfg)
+    self_cmp = cy is None
+    cy = cx if self_cmp else cy
+    ys = {strand: cy if strand == 0 else revcomp_device(cy)
+          for strand in (0, 1) if "fr"[strand] in cfg.strands}
+    if self_cmp:
+        seeds = self_seeds_fn(cx, cfg)
+    else:
+        idx_x = build_index(cx, cfg.k)
+        seeds = {strand: pair_seeds_fn(idx_x, y, cfg) for strand, y in ys.items()}
     t = lap("seeds", t)
     frags, valids, totals, nseeds = [], [], [], []
     for strand, (spx, spy, sv, n_seeds, total) in seeds.items():
-        cy = cx if strand == 0 else revcomp_device(cx)
-        frag, fv = extend_gated(spx, spy, sv, cx, cy, cfg, n_live=n_seeds)
+        frag, fv = extend_gated(spx, spy, sv, cx, ys[strand], cfg,
+                                n_live=n_seeds)
         frag["strand"] = torch.where(fv, strand, 0).to(torch.int32)
         frags.append(frag)
         valids.append(fv)
@@ -77,7 +104,7 @@ def compare_fn(cx: torch.Tensor, cfg: Config, timings: Optional[dict] = None):
     t = lap("extend", t)
     frag = {f: torch.cat([fr[f] for fr in frags]) for f in frags[0]}
     out, _, n_frags = merge_accept(frag, torch.cat(valids), cfg.min_len,
-                                   cfg.min_identity, y_len=cx.shape[0])
+                                   cfg.min_identity, y_len=cy.shape[0])
     lap("merge", t)
     return out, n_frags, torch.stack(totals), torch.stack(nseeds)
 
@@ -94,23 +121,23 @@ def check_device(device) -> torch.device:
 
 def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
             device, timings: Optional[dict] = None) -> Dict[str, np.ndarray]:
-    """Self-comparison of ``codesX`` on ``device`` -> the canonical
-    fragment dict (original coordinates, numpy, compacted to the true
-    count) with the host-computed "group" family column. Raises on hit,
-    seed and fragment capacity overflow. ``timings`` as in compare_fn,
-    plus "families" for the host clustering."""
-    if codesY is not None:
-        raise NotImplementedError(
-            "pairwise comparison is not ported yet (ROADMAP.md); pass "
-            "codesY=None for a self-comparison")
+    """Comparison of ``codesX`` against ``codesY`` (``None``: against
+    itself) on ``device`` -> the canonical fragment dict (original
+    coordinates, numpy, compacted to the true count) with the
+    host-computed "group" family column. Raises on hit, seed and fragment
+    capacity overflow. ``timings`` as in compare_fn, plus "families" for
+    the host clustering."""
     dev = check_device(device)
-    codes = np.asarray(codesX, np.uint8)
-    if codes.shape[0] < cfg.k:
+    self_cmp = codesY is None
+    codes_x = np.asarray(codesX, np.uint8)
+    codes_y = codes_x if self_cmp else np.asarray(codesY, np.uint8)
+    if codes_x.shape[0] < cfg.k or codes_y.shape[0] < cfg.k:
         frag = {f: np.zeros(0, np.int32) for f in orc.FRAG_FIELDS}
         frag["group"] = np.zeros(0, np.int32)
         return frag
-    cx = torch.from_numpy(codes.copy()).to(dev)
-    out, n_frags, total_hits, n_seeds = compare_fn(cx, cfg, timings)
+    cx = torch.from_numpy(codes_x.copy()).to(dev)
+    cy = None if self_cmp else torch.from_numpy(codes_y.copy()).to(dev)
+    out, n_frags, total_hits, n_seeds = compare_fn(cx, cy, cfg, timings)
 
     total_hits = total_hits.cpu().numpy()
     if (total_hits > cfg.hit_capacity).any():
@@ -129,10 +156,16 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
             "raise Config.seed_capacity / Config.hit_capacity")
     frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
     t0 = time.perf_counter()
-    # device_min_edges above the edge cap keeps clustering on the host path,
-    # whatever REPKILLER_DEVICE_CLUSTER says: the device path is JAX
-    frag["group"] = cluster.cluster_families(
-        frag, cfg, True, device_min_edges=cluster.DEVICE_EDGE_CAP + 1)
+    frag["group"] = group_families(frag, cfg, self_cmp)
     if timings is not None:
         timings["families"] = timings.get("families", 0.0) + time.perf_counter() - t0
     return frag
+
+
+def group_families(frag: Dict[str, np.ndarray], cfg: Config,
+                   self_cmp: bool) -> np.ndarray:
+    """Family id per canonical-sorted fragment, on the host.
+    device_min_edges above the edge cap keeps clustering on the host path,
+    whatever REPKILLER_DEVICE_CLUSTER says: the device path is JAX."""
+    return cluster.cluster_families(
+        frag, cfg, self_cmp, device_min_edges=cluster.DEVICE_EDGE_CAP + 1)

@@ -1,11 +1,14 @@
-"""Build and ctypes binding of the hand-written CUDA kernel K1
-(csrc/banded_gotoh.cu).
+"""Build and ctypes bindings of the hand-written CUDA kernels: K1
+(csrc/banded_gotoh.cu) and K2 (csrc/ungapped_xdrop.cu).
 
-The source is compiled at first use with ``nvcc`` into a plain shared
-library (``_build/`` beside the package, listed in .gitignore), named by a
-hash of the source, and loaded with ctypes: the C interface takes device
-pointers and a ``cudaStream_t``, so no torch headers are compiled. A failed
-compile or launch raises with the compiler's or the runtime's message.
+``build`` compiles any ``csrc/*.cu`` with ``nvcc`` into a plain shared
+library of its own (``_build/`` beside the package, listed in .gitignore),
+named by the source's stem and a hash of its text, and loads it with
+ctypes: each C interface takes device pointers and a ``cudaStream_t``, so
+no torch headers are compiled. Several sources build at once, one nvcc
+process each. A failed compile or launch raises with the compiler's or
+the runtime's message. Each kernel's wrapper counts its launches in its
+own ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -20,10 +23,14 @@ from pathlib import Path
 
 import torch
 
+from .ungapped import check_max_extend
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "banded_gotoh.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-MAX_BAND = 32                    # the kernel's largest register row: W <= 65
+BANDED_SOURCE = CSRC / "banded_gotoh.cu"
+UNGAPPED_SOURCE = CSRC / "ungapped_xdrop.cu"
+REGISTER_W = 65                  # K1's widest register-resident DP row
 
 
 def _nvcc() -> str:
@@ -34,34 +41,60 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernel library unless this source's build exists; the
-    compiler's report (``-Xptxas -v``: registers, spills) is kept beside
-    it as ``<library>.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libbanded_gotoh-{tag}.so"
-    if so.exists():
-        return so
+def library_path(source: Path) -> Path:
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{tag}.so"
+
+
+def build(*sources: Path) -> list:
+    """Compile each source's library unless its build exists, all nvcc
+    processes running together -> the libraries' paths. The compiler's
+    report (``-Xptxas -v``: registers, spills) is kept beside each as
+    ``<library>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), "-O3", "-arch=sm_90a", "-std=c++17", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    Path(f"{so}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    jobs = []
+    for src in sources:
+        so = library_path(src)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
+        cmd = [_nvcc(), "-O3", "-arch=sm_90a", "-std=c++17", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+               str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((so, tmp, cmd, proc))
+    failed = []
+    for so, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}: "
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        Path(f"{so}.log").write_text(out)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(src) for src in sources]
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "rk_banded_gotoh": [_P, _P, _P, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "rk_ungapped_xdrop": [_P, _P, _P, _P, _LL, _P, _LL, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _P, _P],
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rk_banded_gotoh.argtypes = [p, p, p, p, ll, p, ll, p, i, i, i, i, i, i,
-                                    i, i, i, i, i, p, p]
-    lib.rk_banded_gotoh.restype = ctypes.c_int
+def _lib(source: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(source)[0]))
+    for name, argtypes in _ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.rk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rk_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -74,40 +107,79 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device) -> None:
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_seeds(kernel: str, px, py, valid, cx, cy):
+    """Device, dtype and shape checks shared by both kernels -> device."""
+    dev = px.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {dev}")
+    for t, name, dt in ((px, "px", torch.int32), (py, "py", torch.int32),
+                        (valid, "valid", torch.bool), (cx, "cx", torch.uint8),
+                        (cy, "cy", torch.uint8)):
+        _check(t, name, dt, dev)
+    if py.shape[0] != px.shape[0] or valid.shape[0] != px.shape[0]:
+        raise ValueError("px, py and valid differ in length")
+    return dev
+
+
+def _launch(source: Path, fn: str, dev, *args) -> None:
+    lib = _lib(source)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: "
+                           + lib.rk_cuda_error_string(err).decode())
+
+
 def banded_gotoh(px, py, valid, cx, cy, base_off: int, step: int,
                  match: int, mismatch: int, x_drop: int, E: int, band: int,
                  gap_open: int, gap_extend: int, jcap: int, n_live):
     """Launch K1 on CUDA tensors -> (ei, ej, gain, idents, alive) int32[n];
     the same contract as extend.banded.direction_plain. ``n_live`` may be
-    an int or a 0-d tensor; a tensor stays on the device (no host sync)."""
-    if not 0 <= band <= MAX_BAND:
-        raise ValueError(f"band {band} outside the kernel's 0..{MAX_BAND}")
-    dev = px.device
-    if dev.type != "cuda":
-        raise ValueError(f"banded_gotoh needs CUDA tensors, got {dev}")
-    for t, name, dt in ((px, "px", torch.int32), (py, "py", torch.int32),
-                        (valid, "valid", torch.bool), (cx, "cx", torch.uint8),
-                        (cy, "cy", torch.uint8)):
-        _check(t, name, dt, dev)
+    an int or a 0-d tensor; a tensor stays on the device (no host sync).
+    Rows wider than REGISTER_W cells run in a (4, W, n) int32 scratch
+    buffer allocated here."""
+    if band < 0:
+        raise ValueError(f"band {band} is negative")
+    dev = _check_seeds("banded_gotoh", px, py, valid, cx, cy)
     n = px.shape[0]
-    if py.shape[0] != n or valid.shape[0] != n:
-        raise ValueError("px, py and valid differ in length")
     nl = torch.as_tensor(n_live, dtype=torch.int32, device=dev).reshape(())
     out = torch.empty((5, n), dtype=torch.int32, device=dev)
+    W = 2 * band + 1
+    scratch = (torch.empty((4, W, n), dtype=torch.int32, device=dev)
+               if n and W > REGISTER_W else None)
     if n:
-        lib = _lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.rk_banded_gotoh(
+        _launch(BANDED_SOURCE, "rk_banded_gotoh", dev,
                 px.data_ptr(), py.data_ptr(), valid.data_ptr(),
                 cx.data_ptr(), cx.shape[0], cy.data_ptr(), cy.shape[0],
                 nl.data_ptr(), n, base_off, step, match, mismatch, x_drop,
-                E, band, gap_open, gap_extend, jcap, out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError("banded_gotoh launch failed: "
-                               + lib.rk_cuda_error_string(err).decode())
+                E, band, gap_open, gap_extend, jcap, out.data_ptr(),
+                None if scratch is None else scratch.data_ptr())
         banded_gotoh.launches += 1
     return tuple(out.unbind(0))
 
 
 banded_gotoh.launches = 0
+
+
+def ungapped_xdrop(px, py, valid, cx, cy, base_off: int, step: int,
+                   match: int, mismatch: int, x_drop: int, E: int, n_live):
+    """Launch K2 on CUDA tensors -> (ext, gain, idents) int32[n]; the same
+    contract as extend.ungapped.direction_plain. ``n_live`` may be an int
+    or a 0-d tensor; a tensor stays on the device (no host sync)."""
+    check_max_extend(E)
+    dev = _check_seeds("ungapped_xdrop", px, py, valid, cx, cy)
+    n = px.shape[0]
+    nl = torch.as_tensor(n_live, dtype=torch.int32, device=dev).reshape(())
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    if n:
+        _launch(UNGAPPED_SOURCE, "rk_ungapped_xdrop", dev,
+                px.data_ptr(), py.data_ptr(), valid.data_ptr(),
+                cx.data_ptr(), cx.shape[0], cy.data_ptr(), cy.shape[0],
+                nl.data_ptr(), n, base_off, step, match, mismatch, x_drop, E,
+                out.data_ptr())
+        ungapped_xdrop.launches += 1
+    return tuple(out.unbind(0))
+
+
+ungapped_xdrop.launches = 0

@@ -1,13 +1,46 @@
-"""Run bounds and static-capacity owner recovery (counterpart of
-repkiller_tpu/seeds/join.py ``_run_bounds`` and ``owner_rows``)."""
+"""Seed-hit join of two sorted k-mer indices (counterpart of
+repkiller_tpu/seeds/join.py, whose docstring gives the design): one
+merge-by-sort for the run bounds, the hyper-repeat cap, an exclusive scan
+of the pair counts and static-capacity owner recovery."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..utils.scan import INT32_MAX
+
+MAXP = (1 << 31) - 1      # > any valid position (genomes < 2^31 bp)
+
+
+def ranks_by_sort(ka: torch.Tensor, pa: torch.Tensor, n_valid,
+                  kqs: Sequence[torch.Tensor], pqs: Sequence[torch.Tensor]):
+    """For each query set q, ``rank[q][i]`` = number of valid entries of
+    the (kmer, pos)-sorted index with (k, p) <= (kqs[q][i], pqs[q][i]):
+    the right-bisect position of the composite key.
+
+    Targets and queries are concatenated, targets first, and sorted once,
+    stably, by one int64 key (kmer - 2^31) << 32 | (pos + 2^31): kmers are
+    32-bit values (SENTINEL included) and positions any int32 (-1, MAXP,
+    negative anchors), so the key is exact. Stability puts every target
+    before an equal-key query, as the reference's (kmer, pos, qid) sort
+    with negative target qids does. The rank of a row is the running count
+    of valid targets, read back into input order through the inverse
+    permutation."""
+    nt = ka.shape[0]
+    dev = ka.device
+    K = torch.cat([ka.to(torch.int64)] + [kq.to(torch.int64) for kq in kqs])
+    P = torch.cat([pa.to(torch.int64)] + [pq.to(torch.int64) for pq in pqs])
+    key = ((K - (1 << 31)) << 32) | (P + (1 << 31))
+    _, perm = torch.sort(key, stable=True)
+    counted = torch.zeros(K.shape[0], dtype=torch.int32, device=dev)
+    counted[:nt] = (torch.arange(nt, dtype=torch.int32, device=dev)
+                    < n_valid).to(torch.int32)
+    rank = torch.empty_like(counted)
+    rank[perm] = torch.cumsum(counted[perm], 0, dtype=torch.int32)
+    nq = kqs[0].shape[0] if kqs else 0
+    return [rank[nt + q * nq:nt + (q + 1) * nq] for q in range(len(kqs))]
 
 
 def owner_rows(counts: torch.Tensor, offs: torch.Tensor, capacity: int,
@@ -49,3 +82,49 @@ def _run_bounds(k_sorted: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     nxt = torch.where(last, i_idx + 1, n)
     hi = torch.cummin(nxt.flip(0), 0).values.flip(0)
     return lo, hi
+
+
+def join_hits(kx, px, nx_valid, ky, py, ny_valid, k: int, max_occ: int,
+              capacity: int, self_mode: Optional[str] = None, y_len: int = 0,
+              occ_idx=None, shard=None, same_index: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Join two sorted indices (build_index's output) -> (hpx, hpy, hvalid,
+    total) at static ``capacity``; ``total`` is the true pair count, so
+    the caller detects overflow. Hits come in the reference's order:
+    X-index order, then Y-run order.
+
+    Only the pairwise join is ported: ``self_mode``, ``same_index`` and
+    ``occ_idx`` serve the streamed driver, ``shard`` the sharded path."""
+    if self_mode is not None or same_index or occ_idx is not None:
+        raise NotImplementedError(
+            "join_hits: self_mode, same_index and occ_idx belong to the "
+            "streamed driver, ROADMAP.md section 1 item 13")
+    if shard is not None:
+        raise NotImplementedError(
+            "join_hits: shard belongs to the sharded path, ROADMAP.md "
+            "section 1 item 14")
+    nx = kx.shape[0]
+    dev = kx.device
+    xi = torch.arange(nx, dtype=torch.int32, device=dev)
+    lo, hi = ranks_by_sort(ky, py, ny_valid, [kx, kx],
+                           [torch.full((nx,), -1, dtype=torch.int32, device=dev),
+                            torch.full((nx,), MAXP, dtype=torch.int32, device=dev)])
+    occ_y = hi - lo
+    # occurrences of each X k-mer in X itself: run scans, never a search
+    xlo, xhi = _run_bounds(kx)
+    occ_x = torch.minimum(xhi, nx_valid) - torch.minimum(xlo, nx_valid)
+    keep = (xi < nx_valid) & (occ_x <= max_occ) & (occ_y <= max_occ)
+    counts = torch.where(keep, (hi - lo).clamp(min=0), 0)
+
+    csum = torch.cumsum(counts, 0, dtype=torch.int32)          # inclusive
+    total = csum[-1] if nx > 0 else torch.zeros((), dtype=torch.int32,
+                                                device=dev)
+    offs = csum - counts                                       # exclusive
+    t = torch.arange(capacity, dtype=torch.int32, device=dev)
+    rows = owner_rows(counts, offs, capacity, (px, lo))
+    hvalid = t < total
+    y_idx = rows[:, 2] + (t - rows[:, 0])
+    hpy = py[y_idx.clamp(0, max(ky.shape[0] - 1, 0))]
+    hpx = torch.where(hvalid, rows[:, 1], 0)
+    hpy = torch.where(hvalid, hpy, 0)
+    return hpx, hpy, hvalid, total

@@ -83,8 +83,7 @@ def test_dispatch_cpu_is_plain_and_kernel_checks_inputs():
     b = direction_plain(*t, 8, +1, *args, 40, n_live)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="band"):
-        _cuda.banded_gotoh(*t, 8, +1, 4, -4, 30, 40, _cuda.MAX_BAND + 1, 8, 2,
-                           40, n_live)
+        _cuda.banded_gotoh(*t, 8, +1, 4, -4, 30, 40, -1, 8, 2, 40, n_live)
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.banded_gotoh(*t, 8, +1, *args, 40, n_live)
 

@@ -21,9 +21,10 @@ from repkiller_tpu import device as jdevice
 from repkiller_tpu.chain.diagonal import extend_gated as j_extend_gated
 from repkiller_tpu.chain.merge import merge_accept as j_merge
 from repkiller_tpu.config import Config
+from repkiller_tpu.io import codec
 from repkiller_tpu.oracle import pipeline as orc
 from repkiller_tpu.utils import synth
-from repkiller_tpu_torch import api, device as tdevice
+from repkiller_tpu_torch import api, cli as tcli, device as tdevice
 from repkiller_tpu_torch.chain.merge import merge_accept as t_merge
 from repkiller_tpu_torch.convert import to_numpy, to_torch
 
@@ -149,12 +150,17 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         api.compare(_genome(6, L=2000), cfg=CFG)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """Staged execution with resume and the sharded backend are not
+    ported yet: each raises, naming its ROADMAP item."""
     codes = _genome(7, L=2000)
-    with pytest.raises(NotImplementedError, match="pairwise"):
-        tdevice.compare(codes, codes, CFG, "cpu")
-    with pytest.raises(NotImplementedError, match="ungapped"):
-        tdevice.compare(codes, None, CFG.replace(extend_mode="ungapped"), "cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        api.compare(codes, None, CFG, "device", str(tmp_path), device="cpu")
+    fa = tmp_path / "g.fa"
+    fa.write_text(">g\n" + codec.decode(codes) + "\n")
+    with pytest.raises(SystemExit, match="item 14"):
+        tcli.main(["run", str(fa), "-o", str(tmp_path / "o"), "--backend",
+                   "sharded", "--device", "cpu"])
 
 
 NO_JAX = """
@@ -162,23 +168,39 @@ import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
 sys.path.insert(0, {root!r})
 import repkiller_tpu_torch
+import repkiller_tpu_torch.cli
 import chip_smoke                  # imported, main() not run
 from repkiller_tpu.config import Config
+from repkiller_tpu.io import codec
 from repkiller_tpu.utils import synth
 g = synth.plant(5000, [(300, 3, 0.03, 1)], seed=3)
-cfg = Config(k=12, strands="fr", extend_mode="banded", hit_capacity=1 << 13)
-res = repkiller_tpu_torch.compare(g.codes, cfg=cfg, device="cpu")
-assert res.n_fragments > 0, res.n_fragments
-print("fragments", res.n_fragments)
+y = g.codes[500:4500].copy()                        # shares X's sequence
+y[::97] = (y[::97] + 1) % 4
+banded = Config(k=12, strands="fr", extend_mode="banded", hit_capacity=1 << 13)
+for cfg in (banded, Config()):                      # Config(): ungapped
+    for y in (None, y):
+        res = repkiller_tpu_torch.compare(g.codes, y, cfg, device="cpu")
+        assert res.n_fragments > 0, (cfg.extend_mode, y is None)
+        print(cfg.extend_mode, "self" if y is None else "pair",
+              "fragments", res.n_fragments)
+fa = {tmp!r} + "/g.fa"
+open(fa, "w").write(">g\\n" + codec.decode(g.codes) + "\\n")
+assert repkiller_tpu_torch.cli.main(
+    ["run", fa, "-o", {tmp!r} + "/o", "--device", "cpu"]) == 0
 """
 
 
-def test_port_never_imports_jax():
-    proc = subprocess.run([sys.executable, "-c", NO_JAX.format(root=str(ROOT))],
+def test_port_never_imports_jax(tmp_path):
+    """With jax blocked: the banded and the default (ungapped) Config, self
+    and pairwise, and the CLI's run."""
+    code = NO_JAX.format(root=str(ROOT), tmp=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env={**os.environ, "REPKILLER_DEVICE_CLUSTER": "1"})
     assert proc.returncode == 0, proc.stderr
-    assert "fragments" in proc.stdout
+    assert proc.stdout.count(" fragments ") == 4, proc.stdout
+    assert '"stage": "run"' in proc.stdout, proc.stdout
+    assert (tmp_path / "o.frags.csv").exists()
     pattern = re.compile(r"import jax|from jax")
     files = [ROOT / "chip_smoke.py"] + sorted((ROOT / "repkiller_tpu_torch").rglob("*.py"))
     hits = [f"{p}:{i}" for p in files
