@@ -11,8 +11,12 @@ Phases, each of which must pass (any failure exits non-zero):
   3. K1 == its plain torch version (extend/banded.direction_plain),
      exactly, on random seeds at bands 4, 8, 15, 16 in the phase-1 shape
      (192 rows, jcap 192 + band) and the full shapes (512 and 2048 rows,
-     jcap = rows), and at bands 40 and 100 (rows wider than the register
-     kernels) in the phase-1 shape and at 2048 rows;
+     jcap = rows), and at bands 31, 32, 47, 48 (the edges of 1, 2 and 3
+     band cells per lane and of the wide kernel), 40 and 100 (100: rows
+     wider than the warp kernel's 96 cells) in the phase-1 shape and at
+     2048 rows; at bands 15, 31 and 47 with other scores, gaps and
+     x_drops (K1_SCORES; at band 15 also scores at the edge of the warp
+     kernel's keys), and scores past that edge raise;
   4. the golden 30 kb test: CSV and BED byte for byte through api.compare,
      and through ``python -m repkiller_tpu_torch.cli run``;
   5. the banded headline (bench.py's 4.19 Mbp synthetic genome, k=12,
@@ -20,14 +24,17 @@ Phases, each of which must pass (any failure exits non-zero):
      [543009, 535532]; wall time and per-stage times of warm runs; device
      time by kernel and the device's idle share from torch.profiler; then
      K1 == the plain version on the headline's own seed sets (phase 1 over
-     every seed, then the 2048-row pass over the seeds phase 1 left alive)
-     and K1's time against the plain version's;
+     every seed, then the 2048-row pass over the seeds phase 1 left alive),
+     K1's time on each of those 8 sets, and on strand f's right-direction
+     sets the plain version's time, the seed-rows the set needs (counted
+     by the plain version) and K1's bound derived from them;
   6. the ungapped headline (the same genome, extend_mode "ungapped", the
      tool's default): 976 fragments, hit totals [543009, 535532], seeds
      [397907, 400603]; the same walls, stages and profile; then K2 == the
      plain version on every seed set the pipeline launched K2 with (both
      strands, both directions, anchor and survivor passes, device n_live)
-     and K2's time against the plain version's;
+     and K2's time against the plain version's and against its bound
+     from the steps the set needs (counted by the plain version);
   7. the pairwise strain pair of benchmarks/run_config3.py at 4.6 Mbp
      (config #3) through api.compare, banded and ungapped: fragment
      counts, hit totals and seeds against the JAX package's records, walls,
@@ -54,10 +61,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repkiller_tpu.config import Config
-from repkiller_tpu.utils import synth
 from repkiller_tpu_torch import api, device as tdevice
+from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.extend import _cuda, banded, ungapped
+from repkiller_tpu_torch.utils import synth
 from repkiller_tpu_torch.utils.scan import partition_live
 
 ROOT = Path(__file__).resolve().parent
@@ -90,7 +97,18 @@ PAIR_HITS = [5357196, 1275396]
 PAIR_SEEDS = [1101683, 957924]
 PAIR_FRAGS = {"banded": 335570, "ungapped": 2290}
 PHASE1_ROWS = 192
+# (match, mismatch, gap_open, gap_extend, x_drop) besides the defaults
+K1_SCORES = [(4, -4, 8, 0, 40), (4, -4, 60, 2, 40), (1, -3, 5, 2, 20),
+             (2, -7, 8, 1, 25), (4, -4, 8, 2, 2**31 - 1), (4, -4, 8, 2, -3)]
 KERNELS = {"banded": _cuda.banded_gotoh, "ungapped": _cuda.ungapped_xdrop}
+# Bounds. K1 does about 30 int32 operations (adds, compares, selects,
+# maxes) per band cell per row a seed runs, K2 about 12 per step; both run
+# on the SMs' INT32 lanes, 64 per SM per clock. Bytes: each input read
+# once and each output written once, at the H100's 3.35 TB/s.
+K1_OPS_PER_CELL = 30
+K2_OPS_PER_STEP = 12
+INT32_LANES_PER_SM = 64
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -106,12 +124,43 @@ def pin_one_card() -> str:
     return first
 
 
-def card(gpu: str) -> str:
+def smi_query(gpu: str, fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "-i", gpu, "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", gpu, f"--query-gpu={fields}",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card(gpu: str) -> str:
+    return smi_query(gpu, "name,power.limit")
+
+
+def int32_rate(gpu: str) -> float:
+    """Peak int32 operations per second: SMs x 64 INT32 lanes x the SM's
+    maximum clock as nvidia-smi reports it."""
+    mhz = float(smi_query(gpu, "clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(ops: float, nbytes: float, rate: float):
+    """(least time in ms, what sets it) for ``ops`` int32 operations and
+    ``nbytes`` bytes moved."""
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def io_bytes(inputs, n_live, n_outputs: int) -> int:
+    """Bytes a kernel must move: px, py and valid read once for the slots
+    below n_live (the kernels read no seed at or past it), each distinct
+    code array read once (a self-comparison passes one tensor as cx and
+    cy), and n_outputs int32 outputs written once for every slot."""
+    px, py, valid, cx, cy = inputs
+    m = min(px.shape[0], int(n_live))
+    seeds = m * (px.element_size() + py.element_size() + valid.element_size())
+    codes = {t.data_ptr(): t.numel() * t.element_size() for t in (cx, cy)}
+    return seeds + sum(codes.values()) + n_outputs * 4 * px.shape[0]
 
 
 def make_strain_pair(size: int, seed: int):
@@ -225,7 +274,7 @@ def phase_k1_vs_plain(dev) -> int:
     shapes = {b: ((PHASE1_ROWS, PHASE1_ROWS + b), (512, 512), (2048, 2048))
               for b in (4, 8, 15, 16)}
     shapes.update({b: ((PHASE1_ROWS, PHASE1_ROWS + b), (2048, 2048))
-                   for b in (40, 100)})
+                   for b in (31, 32, 47, 48, 40, 100)})
     for band, cases in shapes.items():
         cfg = HEADLINE_CFG.replace(band=band)
         inputs, n_live = random_case(band, 4096, 60000, dev)
@@ -237,6 +286,31 @@ def phase_k1_vs_plain(dev) -> int:
                 print(f"# K1 == plain: band {band} E {E} jcap {jcap} "
                       f"step {step:+d}: exact ({int(got[4].sum())} alive "
                       "at the cap)")
+    # other scores in the phase-1 shape: gap_extend 0 (the scan's ties), a
+    # large gap_open, match != -mismatch, the drop switched off, a negative
+    # x_drop, and scores at the edge of the warp kernel's keys (band 15)
+    for band in (15, 31, 47):
+        inputs, n_live = random_case(200 + band, 4096, 60000, dev)
+        for m, mm, go, ge, xd in K1_SCORES + (
+                [(4000, -4000, 1000, 500, 2**31 - 1)] if band == 15 else []):
+            cfg = HEADLINE_CFG.replace(band=band, match=m, mismatch=mm,
+                                       gap_open=go, gap_extend=ge, x_drop=xd)
+            for base_off, step in ((cfg.k, +1), (-1, -1)):
+                args = kernel_args(cfg, PHASE1_ROWS, PHASE1_ROWS + band,
+                                   base_off, step)
+                err, got = compare_k1(inputs, args, n_live)
+                worst = max(worst, err)
+            print(f"# K1 == plain: band {band} scores {m} {mm} {go} {ge} "
+                  f"x_drop {xd}, both directions: exact ({int(got[4].sum())}"
+                  " alive at the cap)")
+    try:
+        inputs, n_live = random_case(7, 64, 60000, dev)
+        _cuda.banded_gotoh(*inputs, 12, 1, 8000, -8000, 40, PHASE1_ROWS, 15,
+                           1000, 500, PHASE1_ROWS + 15, n_live)
+    except ValueError as e:
+        print(f"# K1 refuses scores past its keys: {e}")
+    else:
+        raise RuntimeError("K1 took scores past its keys")
     return worst
 
 
@@ -358,17 +432,19 @@ def time_cuda(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def phase_k1_headline_sets(cx: torch.Tensor, smi: str):
+def phase_k1_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     """K1 == the plain version on the banded headline's own seed sets, for
     both strands and both directions: phase 1 (192 rows, jcap 192 + band)
     over every seed, then the full-depth pass (max_extend rows, jcap
     max_extend) over the seeds phase 1 left alive, compacted to the front
     with a device ``n_live`` as the pipeline's re-run has them. That set
     holds the re-run's own, which also drops the seeds their anchor
-    covers. Times K1 and the plain version on strand f, right direction,
-    in both passes."""
+    covers. Times K1 on all 8 sets; on strand f, right direction, also the
+    plain version, the seed-rows each pass needs and K1's bound ->
+    (worst error, phase-1 ms, plain ms, bound ms, bound_by)."""
     cfg = HEADLINE_CFG
-    worst, timed = 0, []
+    W = 2 * cfg.band + 1
+    worst, sets = 0, []
     for strand, (spx, spy, sv, n_seeds, _) in tdevice.self_seeds_fn(cx, cfg).items():
         cy = cx if strand == 0 else tdevice.revcomp_device(cx)
         for base_off, step in ((cfg.k, +1), (-1, -1)):
@@ -383,29 +459,47 @@ def phase_k1_headline_sets(cx: torch.Tensor, smi: str):
                               step), n2)
             err2, got2 = compare_k1(*p2)
             worst = max(worst, err1, err2)
-            print(f"# K1 == plain on the headline: strand {'fr'[strand]} step "
-                  f"{step:+d}: phase 1 exact ({int(n_seeds)} live seeds of "
-                  f"{spx.shape[0]}), full depth exact ({int(n2)} re-run seeds, "
-                  f"{int(got2[4].sum())} alive at row {cfg.max_extend})")
-            if not timed:
-                timed = [p1, p2]
-    (ms, plain_ms), (ms2, plain_ms2) = [
-        (time_cuda(lambda: _cuda.banded_gotoh(*inp, *args, nl), 20),
-         time_cuda(lambda: banded.direction_plain(*inp, *args, nl), 2))
-        for inp, args, nl in timed]
-    print(f"# K1 on the headline, strand f, right direction: phase 1 kernel "
-          f"{ms:.6f} ms, plain {plain_ms:.6f} ms; full depth kernel "
-          f"{ms2:.6f} ms, plain {plain_ms2:.6f} ms on {smi}")
-    return worst, ms, plain_ms
+            name = f"strand {'fr'[strand]} step {step:+d}"
+            print(f"# K1 == plain on the headline: {name}: phase 1 exact "
+                  f"({int(n_seeds)} live seeds of {spx.shape[0]}), full depth "
+                  f"exact ({int(n2)} re-run seeds, {int(got2[4].sum())} alive "
+                  f"at row {cfg.max_extend})")
+            sets += [(name, "phase 1", p1), (name, "full depth", p2)]
+    total, times = {"phase 1": 0.0, "full depth": 0.0}, []
+    for name, kind, (inp, args, nl) in sets:
+        times.append(time_cuda(lambda: _cuda.banded_gotoh(*inp, *args, nl), 20))
+        total[kind] += times[-1]
+        print(f"# K1 on the headline, {name}, {kind}: {times[-1]:.6f} ms")
+    print(f"# K1 on the headline's 8 sets: phase 1 {total['phase 1']:.6f} ms, "
+          f"full depth {total['full depth']:.6f} ms in all on {smi}")
+    timed = []
+    for (name, kind, (inp, args, nl)), ms in zip(sets[:2], times):  # f, +1
+        plain_ms = time_cuda(lambda: banded.direction_plain(*inp, *args, nl), 2)
+        rows = banded.direction_plain(*inp, *args, nl, live_rows=True)[5]
+        seed_rows = int(rows.sum())
+        ops = seed_rows * W * K1_OPS_PER_CELL
+        nbytes = io_bytes(inp, nl, 5)
+        bound_ms, by = bound(ops, nbytes, rate)
+        print(f"# K1 on the headline, {name}, {kind}: kernel {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms; {seed_rows} seed-rows over "
+              f"{rows.numel()} rows x W {W} x {K1_OPS_PER_CELL} int32 ops = "
+              f"{ops} ops at {rate / 1e12:.4f} T op/s; {nbytes} bytes; bound "
+              f"{bound_ms:.6f} ms ({by}), roofline share {bound_ms / ms:.4f} "
+              f"on {smi}")
+        timed.append((ms, plain_ms, bound_ms, by))
+    (ms, plain_ms, bound_ms, by), _ = timed
+    return worst, ms, plain_ms, bound_ms, by
 
 
-def phase_k2_headline_sets(cx: torch.Tensor, smi: str):
+def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     """K2 == the plain version on every seed set the ungapped headline
     launches K2 with: the pipeline runs once with the kernel's wrapper
     recording its arguments (both strands; right and left; the compacted
     anchor pass and survivor pass, each with a device ``n_live``), then
     each recorded launch is held against the plain version. Times K2 and
-    the plain version on the first launch (strand f, anchors, right)."""
+    the plain version on the first launch (strand f, anchors, right),
+    with K2's bound from the steps that launch needs -> (worst error, ms,
+    plain ms, bound ms, bound_by)."""
     kernel = _cuda.ungapped_xdrop
     recorded = []
 
@@ -437,9 +531,16 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str):
     args = recorded[0]
     ms = time_cuda(lambda: kernel(*args), 20)
     plain_ms = time_cuda(lambda: ungapped.direction_plain(*args), 3)
+    steps = int(ungapped.direction_plain(*args, count_steps=True)[3])
+    ops = steps * K2_OPS_PER_STEP
+    nbytes = io_bytes(args[:5], args[-1], 3)
+    bound_ms, by = bound(ops, nbytes, rate)
     print(f"# K2 on the ungapped headline, strand f, anchors, right "
-          f"direction: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms on {smi}")
-    return worst, ms, plain_ms
+          f"direction: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms; {steps} "
+          f"steps x {K2_OPS_PER_STEP} int32 ops = {ops} ops at "
+          f"{rate / 1e12:.4f} T op/s; {nbytes} bytes; bound {bound_ms:.6f} ms "
+          f"({by}), roofline share {bound_ms / ms:.4f} on {smi}")
+    return worst, ms, plain_ms, bound_ms, by
 
 
 def phase_pairwise(smi: str) -> dict:
@@ -496,6 +597,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = card(gpu)
+    rate = int32_rate(gpu)
     print(f"# python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
@@ -509,14 +611,16 @@ def main() -> int:
     k1_counted = phase_headline(g.codes, cx, HEADLINE_CFG, smi)
     check(k1_counted["banded"] > 0, "the banded headline did not launch K1")
     phase_profile(cx, HEADLINE_CFG, smi)
-    err1b, k1_ms, k1_plain_ms = phase_k1_headline_sets(cx, smi)
+    err1b, k1_ms, k1_plain_ms, k1_bound, k1_by = phase_k1_headline_sets(
+        cx, smi, rate)
 
     k2_counted = phase_headline(g.codes, cx, UNGAPPED_CFG, smi)
     check(k2_counted["ungapped"] > 0 and k2_counted["banded"] == 0,
           f"the ungapped headline launched {k2_counted}: K2 > 0 and K1 == 0 "
           "expected")
     phase_profile(cx, UNGAPPED_CFG, smi)
-    err2b, k2_ms, k2_plain_ms = phase_k2_headline_sets(cx, smi)
+    err2b, k2_ms, k2_plain_ms, k2_bound, k2_by = phase_k2_headline_sets(
+        cx, smi, rate)
     del cx
     torch.cuda.empty_cache()
 
@@ -530,12 +634,14 @@ def main() -> int:
          "source": "repkiller_tpu_torch/csrc/banded_gotoh.cu",
          "replaces": "repkiller_tpu/extend/banded_pallas.py:103",
          "launches": k1_counted["banded"], "max_abs_err": max(err1, err1b),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": None},
         {"name": "ungapped_xdrop", "route": "cuda",
          "source": "repkiller_tpu_torch/csrc/ungapped_xdrop.cu",
          "replaces": "repkiller_tpu/extend/ungapped_pallas.py:30",
          "launches": k2_counted["ungapped"], "max_abs_err": max(err2, err2b),
-         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,15 +3,17 @@ ported to torch tensors (self and pairwise comparison, ungapped and banded
 extension), with both extension kernels hand-written in CUDA for Hopper
 (csrc/ungapped_xdrop.cu, csrc/banded_gotoh.cu).
 
-Host-only code (Config, FASTA IO, the numpy oracle, writers, family
-clustering, Result) is imported from ``repkiller_tpu``, whose package
-import pulls in no JAX. Public API: :func:`repkiller_tpu_torch.api.compare`
-and :func:`repkiller_tpu_torch.api.group_fragments`; the command line is
+The port imports nothing of ``repkiller_tpu``: it keeps its own copies of
+the host-only modules it needs, under the reference's module names
+(``config``, ``io/{codec,fasta}``, ``oracle/{pipeline,banded}``,
+``families/cluster`` (host path only), ``report/{csv_writer,intervals}``,
+``utils/{capacity,synth}``) and ``api.Result``. Public API:
+:func:`repkiller_tpu_torch.api.compare` and
+:func:`repkiller_tpu_torch.api.group_fragments`; the command line is
 ``python -m repkiller_tpu_torch.cli``.
 """
 
-from repkiller_tpu.config import Config
-
 from .api import compare, group_fragments
+from .config import Config
 
 __all__ = ["Config", "compare", "group_fragments"]

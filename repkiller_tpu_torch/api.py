@@ -1,22 +1,111 @@
 """Public Python API of the port (counterpart of repkiller_tpu/api.py).
 
-:func:`compare` returns the reference package's :class:`Result`, so the
-CSV, BED and family writers are the same code. :func:`group_fragments`
-clusters an existing fragments CSV into families.
+- :func:`compare` — full pipeline, FASTA/codes in, fragment table +
+  repeat families out (the torch pipeline by default, the numpy oracle
+  optional).
+- :func:`group_fragments` — cluster an existing fragments CSV into
+  families.
+- :class:`Result` — fragment table + helpers for every output: annotated
+  CSV, repeat intervals, family summary, masked sequence. The same class
+  as the reference's, over the port's own writers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Union
 
 import numpy as np
 
-from repkiller_tpu.api import Result, SeqLike, _as_seqset
-from repkiller_tpu.config import Config, DEFAULT
-from repkiller_tpu.oracle import pipeline as orc
-from repkiller_tpu.report import csv_writer
-
 from . import device as _device
+from .config import Config, DEFAULT
+from .families import cluster_families
+from .io import codec, fasta
+from .oracle import pipeline as orc
+from .report import csv_writer, intervals as report_iv
+
+SeqLike = Union[str, bytes, np.ndarray, fasta.SeqSet]
+
+
+def _as_seqset(x: SeqLike) -> fasta.SeqSet:
+    if isinstance(x, fasta.SeqSet):
+        return x
+    if isinstance(x, np.ndarray):
+        return fasta.from_codes(x)
+    return fasta.read_fasta(x)
+
+
+@dataclass
+class Result:
+    """Comparison result: canonical fragment dict + provenance."""
+
+    frag: Dict[str, np.ndarray]
+    cfg: Config
+    x: fasta.SeqSet
+    y: Optional[fasta.SeqSet] = None
+
+    @property
+    def self_cmp(self) -> bool:
+        return self.y is None
+
+    @property
+    def n_fragments(self) -> int:
+        return int(self.frag["xStart"].shape[0])
+
+    @property
+    def n_families(self) -> int:
+        return int(np.unique(self.frag["group"]).shape[0]) if self.n_fragments else 0
+
+    def write_csv(self, dst, coords: str = "concat") -> None:
+        """coords="record" writes record-local coordinates for
+        multi-record inputs (csv_writer.write_frags_csv docstring)."""
+        ys = self.x if self.self_cmp else self.y
+        csv_writer.write_frags_csv(
+            self.frag, dst,
+            x_name=self.x.names[0] if self.x.names else "seqX",
+            y_name=None if self.self_cmp else (ys.names[0] if ys.names else "seqY"),
+            x_len=self.x.total_length, y_len=ys.total_length,
+            x_seqs=self.x, y_seqs=None if self.self_cmp else ys,
+            coords=coords,
+        )
+
+    def repeat_intervals(self) -> Dict[int, np.ndarray]:
+        return orc.repeat_intervals(self.frag, self.frag["group"], self.cfg,
+                                    self.self_cmp)
+
+    def write_intervals(self, dst) -> Dict[int, np.ndarray]:
+        ys = self.x if self.self_cmp else self.y
+        return report_iv.write_intervals_bed(
+            self.frag, self.cfg, dst, self.self_cmp,
+            x_name=self.x.names[0] if self.x.names else "seqX",
+            y_name=ys.names[0] if ys.names else "seqY",
+            x_seqs=self.x, y_seqs=ys,
+        )
+
+    def write_family_summary(self, dst) -> Dict[str, np.ndarray]:
+        return report_iv.write_family_summary(self.frag, dst)
+
+    def masked_codes(self, space: int = 0) -> np.ndarray:
+        iv = self.repeat_intervals()
+        src = self.x.codes if space == 0 else (self.y or self.x).codes
+        return report_iv.mask_codes(src, iv.get(space))
+
+    def masked_fasta(self, space: int = 0) -> str:
+        """Hard-masked FASTA — one record per input record (multi-record
+        SeqSets round-trip; inter-record N spacers are not emitted)."""
+        seqs = self.x if space == 0 else (self.y or self.x)
+        masked = self.masked_codes(space)
+        out = []
+        n_rec = len(seqs.names) if seqs.names else 1
+        for r in range(n_rec):
+            o = int(seqs.offsets[r]) if seqs.offsets is not None else 0
+            ln = int(seqs.lengths[r]) if seqs.lengths is not None \
+                else masked.shape[0]
+            body = codec.decode(masked[o : o + ln])
+            name = seqs.names[r] if seqs.names else "seq0"
+            lines = [body[i : i + 70] for i in range(0, len(body), 70)]
+            out.append(">%s masked\n%s\n" % (name, "\n".join(lines)))
+        return "".join(out)
 
 
 def compare(x: SeqLike, y: Optional[SeqLike] = None, cfg: Config = DEFAULT,
@@ -53,5 +142,5 @@ def group_fragments(frags_csv, cfg: Config = DEFAULT, self_cmp: bool = True
     frag = csv_writer.read_frags_csv(frags_csv)
     frag.pop("_meta", None)
     frag = orc.canonical_sort(frag)
-    frag["group"] = _device.group_families(frag, cfg, self_cmp)
+    frag["group"] = cluster_families(frag, cfg, self_cmp)
     return frag

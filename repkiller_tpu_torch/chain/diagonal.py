@@ -15,8 +15,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repkiller_tpu.config import Config
-
+from ..config import Config
 from ..extend import extend_dispatch
 from ..extend.banded_kernel import extend_banded_gated
 from ..utils.scan import partition_live

@@ -1,22 +1,25 @@
 """Command-line driver of the port: ``python -m repkiller_tpu_torch.cli``.
 
-The subcommands and flags are those of ``repkiller_tpu.cli`` (its parser
-is reused), plus ``run --device`` (default ``cuda``; without a GPU that
-raises, pass ``--device cpu`` to run on the CPU):
+The subcommands and flags are those of ``repkiller_tpu.cli`` (the parser
+below is its copy, over the port's own ``Config``), plus ``run --device``
+(default ``cuda``; without a GPU that raises, pass ``--device cpu`` to run
+on the CPU):
 
   run    FASTA (self, or a pair) -> fragments CSV, family summary, repeat
          intervals BED, optional masked FASTA, and one JSON metrics line
   group  fragments CSV -> family-annotated CSV, summary and intervals
 
-``--profile DIR`` writes a torch.profiler trace to DIR/trace.json. There
-is one process, so the outputs are written directly. Flags of paths that
-are not ported yet exit with the ROADMAP item that brings them.
+Flags map 1:1 onto Config fields. ``--profile DIR`` writes a
+torch.profiler trace to DIR/trace.json. There is one process, so the
+outputs are written directly. Flags of paths that are not ported yet exit
+with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -25,24 +28,92 @@ import time
 
 import numpy as np
 
-from repkiller_tpu.cli import _config_from_args
-from repkiller_tpu.cli import build_parser as _reference_parser
-from repkiller_tpu.report import csv_writer, intervals as report_iv
-from repkiller_tpu.utils.capacity import grow_capacity
-
 from . import api
+from .config import Config
+from .report import csv_writer, intervals as report_iv
+from .utils.capacity import grow_capacity
 
 log = logging.getLogger("repkiller_tpu")
 
 
+def _add_config_flags(p: argparse.ArgumentParser) -> None:
+    for f in dataclasses.fields(Config):
+        flag = "--" + f.name.replace("_", "-")
+        if f.type == "str" or isinstance(f.default, str):
+            p.add_argument(flag, type=str, default=f.default)
+        elif isinstance(f.default, bool):
+            p.add_argument(flag, type=int, default=int(f.default))
+        elif isinstance(f.default, float):
+            p.add_argument(flag, type=float, default=f.default)
+        else:
+            p.add_argument(flag, type=int, default=f.default)
+
+
+def _config_from_args(args: argparse.Namespace) -> Config:
+    return Config(**{f.name: getattr(args, f.name)
+                     for f in dataclasses.fields(Config)})
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = _reference_parser()
-    p.prog = "python -m repkiller_tpu_torch.cli"
-    sub = next(a for a in p._actions
-               if isinstance(a, argparse._SubParsersAction))
-    sub.choices["run"].add_argument(
-        "--device", default="cuda",
-        help="torch device to run on (default cuda; raises without a GPU)")
+    p = argparse.ArgumentParser(
+        prog="python -m repkiller_tpu_torch.cli",
+        description="Repeat detection on PyTorch and CUDA (capabilities of "
+                    "estebanpw/repkiller)",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("run", help="full comparison pipeline")
+    pr.add_argument("fasta_x", help="query FASTA (or '-' for stdin)")
+    pr.add_argument("fasta_y", nargs="?", default=None,
+                    help="optional second FASTA; omitted = self-comparison")
+    pr.add_argument("-o", "--out-prefix", default="out",
+                    help="output file prefix")
+    pr.add_argument("--backend", choices=("device", "sharded", "oracle"),
+                    default="device")
+    pr.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; raises "
+                         "without a GPU)")
+    pr.add_argument("--mask", action="store_true",
+                    help="also write <prefix>.masked.fasta")
+    pr.add_argument("--coords", choices=("concat", "record"),
+                    default="concat",
+                    help="fragment CSV coordinate space for multi-record "
+                         "inputs: concatenated (round-trip canonical) or "
+                         "record-local (per-chromosome, GECKO-consumer "
+                         "dialect)")
+    pr.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace to DIR/trace.json")
+    pr.add_argument("--metrics-json", default=None,
+                    help="append a JSONL metrics record here")
+    pr.add_argument("--keep-intermediates", default=None, metavar="DIR",
+                    help="not ported yet (staged execution with resume)")
+    pr.add_argument("--auto-capacity", type=int, default=0, metavar="N",
+                    help="on capacity overflow, double the offending "
+                         "capacity and retry, up to N times. 0 = fail fast "
+                         "with the measured counts")
+    pr.add_argument("--stage-timing", action="store_true",
+                    help="not ported yet (per-stage JSONL timings)")
+    # multi-process flags of the reference, kept so that they exit naming
+    # the item that ports them
+    pr.add_argument("--num-processes", type=int, default=1,
+                    help="not ported yet: total processes")
+    pr.add_argument("--process-id", type=int, default=None,
+                    help="not ported yet: this process's rank")
+    pr.add_argument("--coordinator", default="127.0.0.1:29477",
+                    help="not ported yet: rank-0 coordinator host:port")
+    pr.add_argument("--platform", default=None,
+                    help="not ported yet (a JAX platform in the reference)")
+    pr.add_argument("--host-devices", type=int, default=None,
+                    help="not ported yet (virtual JAX devices in the "
+                         "reference)")
+    _add_config_flags(pr)
+
+    pg = sub.add_parser("group", help="cluster an existing fragments CSV")
+    pg.add_argument("frags_csv")
+    pg.add_argument("-o", "--out-prefix", default="grouped")
+    pg.add_argument("--cross", action="store_true",
+                    help="fragments come from a two-genome comparison")
+    _add_config_flags(pg)
     return p
 
 

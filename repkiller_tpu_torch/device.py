@@ -18,14 +18,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repkiller_tpu.config import Config
-from repkiller_tpu.families import cluster
-from repkiller_tpu.oracle import pipeline as orc
-
 from .chain.diagonal import extend_gated
 from .chain.merge import merge_accept
+from .config import Config
+from .families import cluster_families
 from .index.build import build_index
 from .index.canonical import build_canonical_index
+from .oracle import pipeline as orc
 from .seeds.filter import filter_hits
 from .seeds.join import join_hits
 from .seeds.self_join import join_self_canonical
@@ -156,16 +155,7 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
             "raise Config.seed_capacity / Config.hit_capacity")
     frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
     t0 = time.perf_counter()
-    frag["group"] = group_families(frag, cfg, self_cmp)
+    frag["group"] = cluster_families(frag, cfg, self_cmp)
     if timings is not None:
         timings["families"] = timings.get("families", 0.0) + time.perf_counter() - t0
     return frag
-
-
-def group_families(frag: Dict[str, np.ndarray], cfg: Config,
-                   self_cmp: bool) -> np.ndarray:
-    """Family id per canonical-sorted fragment, on the host.
-    device_min_edges above the edge cap keeps clustering on the host path,
-    whatever REPKILLER_DEVICE_CLUSTER says: the device path is JAX."""
-    return cluster.cluster_families(
-        frag, cfg, self_cmp, device_min_edges=cluster.DEVICE_EDGE_CAP + 1)

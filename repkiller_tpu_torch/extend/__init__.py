@@ -7,8 +7,7 @@ here."""
 
 from __future__ import annotations
 
-from repkiller_tpu.config import Config
-
+from ..config import Config
 from .banded_kernel import extend_banded
 from .ungapped_kernel import extend_ungapped
 

@@ -30,7 +30,6 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 BANDED_SOURCE = CSRC / "banded_gotoh.cu"
 UNGAPPED_SOURCE = CSRC / "ungapped_xdrop.cu"
-REGISTER_W = 65                  # K1's widest register-resident DP row
 
 
 def _nvcc() -> str:
@@ -95,6 +94,11 @@ def _lib(source: Path) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    if hasattr(lib, "rk_banded_unsupported"):
+        lib.rk_banded_register_w.argtypes = []
+        lib.rk_banded_register_w.restype = ctypes.c_int
+        lib.rk_banded_unsupported.argtypes = [_I] * 6
+        lib.rk_banded_unsupported.restype = ctypes.c_char_p
     lib.rk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rk_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -137,17 +141,25 @@ def banded_gotoh(px, py, valid, cx, cy, base_off: int, step: int,
     """Launch K1 on CUDA tensors -> (ei, ej, gain, idents, alive) int32[n];
     the same contract as extend.banded.direction_plain. ``n_live`` may be
     an int or a 0-d tensor; a tensor stays on the device (no host sync).
-    Rows wider than REGISTER_W cells run in a (4, W, n) int32 scratch
-    buffer allocated here."""
-    if band < 0:
-        raise ValueError(f"band {band} is negative")
+    Rows wider than the kernel's ``rk_banded_register_w()`` cells run in a
+    (4, W, n) int32 scratch buffer allocated here. Raises ValueError for
+    the scores that ``rk_banded_unsupported`` refuses: those whose values
+    could leave the warp kernel's packed keys (csrc/banded_gotoh.cu says
+    why). Any x_drop is taken."""
     dev = _check_seeds("banded_gotoh", px, py, valid, cx, cy)
+    lib = _lib(BANDED_SOURCE)
+    why = lib.rk_banded_unsupported(band, match, mismatch, E, gap_open,
+                                    gap_extend)
+    if why is not None:
+        raise ValueError(f"banded_gotoh cannot take match {match}, mismatch "
+                         f"{mismatch}, gap_open {gap_open}, gap_extend "
+                         f"{gap_extend}, E {E}, band {band}: {why.decode()}")
     n = px.shape[0]
     nl = torch.as_tensor(n_live, dtype=torch.int32, device=dev).reshape(())
     out = torch.empty((5, n), dtype=torch.int32, device=dev)
     W = 2 * band + 1
     scratch = (torch.empty((4, W, n), dtype=torch.int32, device=dev)
-               if n and W > REGISTER_W else None)
+               if n and W > lib.rk_banded_register_w() else None)
     if n:
         _launch(BANDED_SOURCE, "rk_banded_gotoh", dev,
                 px.data_ptr(), py.data_ptr(), valid.data_ptr(),

@@ -39,20 +39,23 @@ def _down(x: torch.Tensor, d: int, fill: int) -> torch.Tensor:
 
 def direction_plain(px, py, valid, cx, cy, base_off: int, step: int,
                     match: int, mismatch: int, x_drop: int, E: int, band: int,
-                    gap_open: int, gap_extend: int, jcap: int, n_live
-                    ) -> Tuple[torch.Tensor, ...]:
+                    gap_open: int, gap_extend: int, jcap: int, n_live, *,
+                    live_rows: bool = False) -> Tuple[torch.Tensor, ...]:
     """One direction for all seeds -> (ei, ej, gain, idents, alive) int32[n].
 
     The base consumed at x-step i is ``cx[px + base_off + step*(i-1)]``,
     the same for y with j (right: base_off=k, step=+1; left: base_off=-1,
-    step=-1). ``n_live`` is an int or a 0-d tensor."""
+    step=-1). ``n_live`` is an int or a 0-d tensor. ``live_rows`` appends
+    a sixth output: int64[rows run], the number of seeds that enter each
+    row with a live cell, whose sum is the seed-rows the work needs."""
     n = px.shape[0]
     m = min(n, int(n_live))
     if m < n:                  # slots past n_live are zeros: compute the prefix
         out = direction_plain(px[:m], py[:m], valid[:m], cx, cy, base_off, step,
                               match, mismatch, x_drop, E, band, gap_open,
-                              gap_extend, jcap, m)
-        return tuple(torch.cat([r, r.new_zeros(n - m)]) for r in out)
+                              gap_extend, jcap, m, live_rows=live_rows)
+        padded = tuple(torch.cat([r, r.new_zeros(n - m)]) for r in out[:5])
+        return padded + tuple(out[5:])
     dev = px.device
     b = band
     W = 2 * b + 1
@@ -88,9 +91,13 @@ def direction_plain(px, py, valid, cx, cy, base_off: int, step: int,
     bid = torch.zeros(n, dtype=i32, device=dev)
     neg_col = torch.full((n, 1), NEG_INF, dtype=i32, device=dev)
     zero_col = torch.zeros((n, 1), dtype=i32, device=dev)
+    per_row = []
 
     for i in range(1, E + 1):
-        if not bool((H > NEG_INF).any()):
+        live = (H > NEG_INF).any(dim=1)
+        if live_rows:
+            per_row.append(live.sum())
+        if not bool(live.any()):
             break
         j = i - b + o
         ych, yin = y_at(j.expand(n, W))
@@ -152,4 +159,8 @@ def direction_plain(px, py, valid, cx, cy, base_off: int, step: int,
         IH, IE = IHn, IEnew
 
     alive = (H > NEG_INF).any(dim=1).to(i32)
+    if live_rows:
+        counts = (torch.stack(per_row) if per_row
+                  else torch.zeros(0, dtype=torch.int64, device=dev))
+        return bei, bej, best, bid, alive, counts
     return bei, bej, best, bid, alive

@@ -1,0 +1,159 @@
+"""Vectorized repeat-family clustering (repkiller proper — SURVEY.md §2.1
+"Grouping heuristics"): the port's copy of repkiller_tpu/families/cluster.py,
+host path only. The reference's opt-in device propagation
+(REPKILLER_DEVICE_CLUSTER, JAX) has no counterpart here.
+
+Semantics are DEFINED by oracle.pipeline.cluster_families (sweep + union-
+find); this is the production implementation: numpy-vectorized edge
+construction (sorted intervals + searchsorted neighbor ranges, the
+capacity-free two-pass expansion) and min-label propagation with pointer
+jumping — O(E) memory, O((E+n) log n) work, no Python per-fragment loop.
+It matches the oracle bit-identically: the oracle's union-by-smaller-index
+makes every union-find root the minimum member index, which is exactly the
+fixpoint of min-label propagation.
+
+Edge rule (same as oracle): intervals sorted by (space, start, end,
+frag_idx); i links to every later j in the same space with
+start_j <= end_i + proximity, provided the two fragments' lengths are
+ratio-compatible: min(la,lb)*100 >= round(len_ratio*100)*max(la,lb).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from ..config import Config
+from ..oracle import pipeline as orc
+
+
+EDGE_CHUNK = 1 << 22   # edges materialised at once (~64 MB of working set)
+
+def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
+    """Sorted interval table + per-interval neighbor ranges. Returns (fidx, counts, offs, lo,
+    lens, pct, total) in the (space, start, end, fidx) lex order."""
+    space, start, end, fidx = orc._intervals_of(frag, self_cmp)
+    order = np.lexsort((fidx, end, start, space))
+    space, start, end, fidx = (space[order], start[order], end[order],
+                               fidx[order])
+    m = space.shape[0]
+
+    # neighbor ranges: i links to j in (i, hi_i): same space and
+    # start_j <= end_i + proximity. `start` is only sorted WITHIN a
+    # space, so bisect on the composite (space, start) key.
+    big = np.int64(max(int(end.max()) + cfg.proximity, int(start.max())) + 2)
+    key = space.astype(np.int64) * big + start
+    q = space.astype(np.int64) * big + np.minimum(
+        end + np.int64(cfg.proximity), big - 1)
+    reach = np.searchsorted(key, q, side="right")
+    lo = np.arange(m, dtype=np.int64) + 1
+    counts = np.maximum(reach - lo, 0)
+    csum = np.cumsum(counts)
+    total = int(csum[-1]) if m else 0
+    offs = csum - counts
+    lens = frag["length"].astype(np.int64)
+    pct = np.int64(round(cfg.len_ratio * 100))
+    return fidx, counts, offs, lo, lens, pct, total, csum
+
+
+def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
+                     self_cmp: bool, edge_chunk: int = EDGE_CHUNK
+                     ) -> np.ndarray:
+    """Family id per fragment = smallest member index (canonical order).
+
+    Fragments MUST already be canonical_sort'ed (same contract as the
+    oracle implementation this replaces on the hot path).
+
+    Memory is bounded: the edge list (sum of neighbor-range counts —
+    quadratic in the worst dense pileup, though max_occ bounds realistic
+    family sizes) is never materialised whole. Edges stream in
+    ``edge_chunk`` blocks, regenerated per propagation round from the
+    O(m) range arrays; min-label propagation reaches the same fixpoint
+    (the per-component minimum) for any edge processing order, so the
+    result is bit-identical to the oracle's union-find for any chunk
+    size.
+    """
+    n = frag["xStart"].shape[0]
+    if n == 0:
+        return np.zeros(0, np.int32)
+    fidx, counts, offs, lo, lens, pct, total, csum = _edge_ranges(
+        frag, cfg, self_cmp)
+    m = fidx.shape[0]
+
+    # source-interval chunk boundaries carrying ~edge_chunk edges each
+    # (one hub interval with more neighbors than edge_chunk makes its
+    # block that big — peak memory then equals its degree, which any
+    # edge representation pays anyway)
+    if total > edge_chunk:
+        cut = np.searchsorted(csum, np.arange(edge_chunk, total, edge_chunk,
+                                              dtype=np.int64), side="left")
+        bounds = np.unique(np.concatenate([[0], cut + 1, [m]]))
+    else:
+        bounds = np.array([0, m], dtype=np.int64)
+
+    def gen_block(i0: int, i1: int):
+        """Filtered (ea, eb) for source intervals [i0, i1) — pure
+        np.repeat expansion, no per-edge binary search."""
+        w = counts[i0:i1]
+        tot = int(w.sum())
+        if not tot:
+            return None
+        ea_i = np.repeat(np.arange(i0, i1, dtype=np.int64), w)
+        off_local = np.repeat(offs[i0:i1], w)
+        intra = np.arange(tot, dtype=np.int64) - (off_local - offs[i0])
+        eb_i = np.repeat(lo[i0:i1], w) + intra
+        ea, eb = fidx[ea_i], fidx[eb_i]
+        keep = ea != eb
+        la, lb = lens[ea], lens[eb]
+        keep &= np.minimum(la, lb) * 100 >= pct * np.maximum(la, lb)
+        if not keep.any():
+            return None
+        return ea[keep].astype(np.int32), eb[keep].astype(np.int32)
+
+    # round 1 generates each block once and caches the filtered edges
+    # while they fit ~2x edge_chunk entries; adversarial pileups beyond
+    # that fall back to regenerating blocks per round (memory stays
+    # bounded either way)
+    cache, cache_n, cache_ok = [], 0, True
+
+    def blocks(first: bool):
+        nonlocal cache, cache_n, cache_ok
+        if not first and cache_ok:
+            yield from cache
+            return
+        for i0, i1 in zip(bounds[:-1], bounds[1:]):
+            blk = gen_block(int(i0), int(i1))
+            if blk is None:
+                continue
+            if first and cache_ok:
+                cache_n += blk[0].shape[0]
+                if cache_n <= 2 * edge_chunk:
+                    cache.append(blk)
+                else:
+                    cache, cache_ok = [], False
+            yield blk
+
+    # min-label propagation with pointer jumping to the fixpoint
+    lab = np.arange(n, dtype=np.int64)
+    first = True
+    while True:
+        new = lab.copy()
+        for ea, eb in blocks(first):
+            la, lb = lab[ea], lab[eb]
+            # already-merged endpoints contribute nothing to the min;
+            # dropping them makes every round after the first nearly
+            # free (ufunc.at is the cost, the gathers are cheap)
+            live = la != lb
+            if not live.any():
+                continue
+            ea, eb = ea[live], eb[live]
+            m2 = np.minimum(la[live], lb[live])
+            np.minimum.at(new, ea, m2)
+            np.minimum.at(new, eb, m2)
+        first = False
+        new = np.minimum(new, new[new])             # pointer jumping
+        if np.array_equal(new, lab):
+            break
+        lab = new
+    return lab.astype(np.int32)

@@ -1,0 +1,130 @@
+"""FASTA ingestion (SURVEY.md §1 L0, §2.2 "FASTA ingestion"); the port's copy
+of repkiller_tpu/io/fasta.py without its optional native parser: the numpy
+parse below gives the same codes.
+
+Host-side reader: (multi-)FASTA -> ``SeqSet`` with concatenated uint8
+codes, per-record names/offsets/lengths. Records are concatenated with a
+single N spacer so k-mers never span record boundaries (any window
+containing the spacer is invalid in the codec's N-mask).
+"""
+
+from __future__ import annotations
+
+import io
+import os
+from dataclasses import dataclass, field
+from typing import List, Union
+
+import numpy as np
+
+from . import codec
+
+
+@dataclass
+class SeqSet:
+    """A set of sequences packed into one concatenated code array."""
+
+    codes: np.ndarray                 # uint8 concatenated codes (with N spacers)
+    names: List[str] = field(default_factory=list)
+    offsets: np.ndarray = None        # int64[nrec] start of each record in `codes`
+    lengths: np.ndarray = None        # int64[nrec]
+    path: str = ""
+
+    @property
+    def total_length(self) -> int:
+        return int(self.codes.shape[0])
+
+    def record(self, i: int) -> np.ndarray:
+        o, l = int(self.offsets[i]), int(self.lengths[i])
+        return self.codes[o : o + l]
+
+    def locate(self, pos) -> tuple:
+        """Global position(s) -> (record index, record-local position)."""
+        pos = np.asarray(pos)
+        ri = np.searchsorted(self.offsets, pos, side="right") - 1
+        return ri, pos - self.offsets[ri]
+
+
+DEFAULT_SPACER = 32   # N codes between records: long enough that x-drop
+                      # kills any extension trying to bridge two records
+                      # (default scoring: crossing costs >= min(32*|mismatch|,
+                      # gap_open + 32*gap_extend) >> x_drop)
+
+
+def read_fasta(src: Union[str, bytes, io.IOBase],
+               spacer: int = DEFAULT_SPACER) -> SeqSet:
+    """Parse FASTA from a path, bytes, or file object into a SeqSet.
+
+    Records are concatenated with `spacer` N codes between them so k-mers
+    and extensions never bridge records."""
+    if isinstance(src, str) and (os.path.exists(src) or os.path.sep in src):
+        with open(src, "rb") as f:
+            data = f.read()
+        path = src
+    elif isinstance(src, str):
+        data = src.encode("ascii")
+        path = ""
+    elif isinstance(src, (bytes, bytearray)):
+        data = bytes(src)
+        path = ""
+    else:
+        data = src.read()
+        if isinstance(data, str):
+            data = data.encode("ascii")
+        path = getattr(src, "name", "")
+
+    names: List[str] = []
+    chunks: List[np.ndarray] = []
+    offsets: List[int] = []
+    lengths: List[int] = []
+    pos = 0
+    spacer_arr = np.full(spacer, codec.NCODE, dtype=np.uint8)
+
+    cur: List[bytes] = []
+
+    def flush():
+        nonlocal pos
+        if not names:
+            return
+        seq = b"".join(cur)
+        cod = codec.encode(seq)
+        if chunks:
+            chunks.append(spacer_arr)
+            pos += spacer
+        offsets.append(pos)
+        lengths.append(len(cod))
+        chunks.append(cod)
+        pos += len(cod)
+        cur.clear()
+
+    for line in data.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith(b">"):
+            flush()
+            names.append(line[1:].split()[0].decode("ascii") if len(line) > 1 else f"seq{len(names)}")
+        else:
+            if not names:
+                names.append("seq0")
+            cur.append(line)
+    flush()
+
+    codes = np.concatenate(chunks) if chunks else np.zeros(0, dtype=np.uint8)
+    return SeqSet(
+        codes=codes,
+        names=names,
+        offsets=np.asarray(offsets, dtype=np.int64),
+        lengths=np.asarray(lengths, dtype=np.int64),
+        path=path,
+    )
+
+
+def from_codes(codes: np.ndarray, name: str = "seq0") -> SeqSet:
+    codes = np.asarray(codes, dtype=np.uint8)
+    return SeqSet(
+        codes=codes,
+        names=[name],
+        offsets=np.zeros(1, dtype=np.int64),
+        lengths=np.asarray([codes.shape[0]], dtype=np.int64),
+    )

@@ -6,6 +6,7 @@ oracle, in both extend modes and for strands f, r and fr; the overflow
 contract; and the default ``Config()`` end to end, self and pairwise.
 Integer outputs: exact equality."""
 
+import dataclasses
 import functools
 import sys
 from pathlib import Path
@@ -17,15 +18,22 @@ import pytest
 import torch
 
 from repkiller_tpu import device as jdevice
-from repkiller_tpu.config import Config
+from repkiller_tpu.config import Config as JConfig
 from repkiller_tpu.index import build as jbuild
 from repkiller_tpu.oracle import pipeline as orc
 from repkiller_tpu.seeds import join as jjoin
 from repkiller_tpu.utils import synth
 from repkiller_tpu_torch import device as tdevice
+from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.convert import to_numpy, to_torch
 from repkiller_tpu_torch.index import build as tbuild
 from repkiller_tpu_torch.seeds import join as tjoin
+
+
+def _ref(cfg: Config) -> JConfig:
+    """The JAX package's Config with the same fields, for its calls."""
+    return JConfig(**dataclasses.asdict(cfg))
+
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "benchmarks"))
@@ -137,9 +145,9 @@ def test_compare_pairwise(mode, strands):
     cfg = Config(k=12, strands=strands, extend_mode=mode, hit_capacity=CAP,
                  max_extend=2048 if mode == "ungapped" else 256)
     got = tdevice.compare(a, b, cfg, "cpu")
-    _assert_frag_equal(got, orc.compare(a, b, cfg))
+    _assert_frag_equal(got, orc.compare(a, b, _ref(cfg)))
     if strands == "fr":
-        _assert_frag_equal(got, jdevice.compare(a, b, cfg))
+        _assert_frag_equal(got, jdevice.compare(a, b, _ref(cfg)))
     for s in map("fr".index, strands):
         assert (got["strand"] == s).any(), s
 
@@ -166,7 +174,7 @@ def test_pairwise_fragment_capacity_overflow_raises():
         tdevice.compare(x, y, cfg, "cpu")
     ok = tdevice.compare(x, y, cfg.replace(seed_capacity=2), "cpu")
     assert ok["xStart"].shape[0] == 1
-    _assert_frag_equal(ok, orc.compare(x, y, cfg))
+    _assert_frag_equal(ok, orc.compare(x, y, _ref(cfg)))
 
 
 def test_default_config_end_to_end():
@@ -178,7 +186,7 @@ def test_default_config_end_to_end():
     y[::50] = (y[::50] + 1) % 4
     for codes_y in (None, y):
         got = tdevice.compare(g.codes, codes_y, cfg, "cpu")
-        _assert_frag_equal(got, jdevice.compare(g.codes, codes_y, cfg))
+        _assert_frag_equal(got, jdevice.compare(g.codes, codes_y, _ref(cfg)))
         assert got["xStart"].shape[0] > 0
 
 

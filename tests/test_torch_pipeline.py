@@ -3,6 +3,7 @@ device pipeline and the numpy oracle; the golden files byte for byte; the
 overflow and edge-case contract; and the proof that the port never
 imports JAX. Integer outputs: exact equality."""
 
+import dataclasses
 import functools
 import io
 import os
@@ -20,18 +21,24 @@ import torch
 from repkiller_tpu import device as jdevice
 from repkiller_tpu.chain.diagonal import extend_gated as j_extend_gated
 from repkiller_tpu.chain.merge import merge_accept as j_merge
-from repkiller_tpu.config import Config
+from repkiller_tpu.config import Config as JConfig
 from repkiller_tpu.io import codec
 from repkiller_tpu.oracle import pipeline as orc
 from repkiller_tpu.utils import synth
 from repkiller_tpu_torch import api, cli as tcli, device as tdevice
 from repkiller_tpu_torch.chain.merge import merge_accept as t_merge
+from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.convert import to_numpy, to_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
 CFG = Config(k=12, strands="fr", extend_mode="banded", band=8,
              hit_capacity=1 << 13, max_extend=512)
+
+
+def _ref(cfg: Config) -> JConfig:
+    """The JAX package's Config with the same fields, for its calls."""
+    return JConfig(**dataclasses.asdict(cfg))
 
 
 def _genome(seed, L=6000):
@@ -63,7 +70,7 @@ def test_merge_accept_on_jax_extension_output():
     convert.to_torch, merged by both implementations."""
     cfg = CFG.replace(max_extend=256)
     cx = jnp.asarray(_genome(41))
-    frag, valid = _jax_extension(cx, cfg)
+    frag, valid = _jax_extension(cx, _ref(cfg))
     frag = {f: np.asarray(v) for f, v in frag.items()}
     valid = np.asarray(valid)
     want = j_merge({f: jnp.asarray(v) for f, v in frag.items()},
@@ -81,8 +88,8 @@ def test_merge_accept_on_jax_extension_output():
 def test_compare_matches_jax_device_and_oracle(seed):
     codes = _genome(seed)
     got = tdevice.compare(codes, None, CFG, "cpu")
-    _assert_frag_equal(got, orc.compare(codes, None, CFG))
-    _assert_frag_equal(got, jdevice.compare(codes, None, CFG))
+    _assert_frag_equal(got, orc.compare(codes, None, _ref(CFG)))
+    _assert_frag_equal(got, jdevice.compare(codes, None, _ref(CFG)))
     assert got["xStart"].shape[0] > 0 and (got["strand"] == 1).any()
 
 
@@ -90,7 +97,7 @@ def test_compare_ungated_matches_oracle():
     codes = _genome(4)
     cfg = CFG.replace(gate_stride=0, max_extend=256)
     _assert_frag_equal(tdevice.compare(codes, None, cfg, "cpu"),
-                       orc.compare(codes, None, cfg))
+                       orc.compare(codes, None, _ref(cfg)))
 
 
 def test_golden_outputs_byte_identical():
@@ -129,7 +136,7 @@ def test_fragment_capacity_overflow_raises():
     with pytest.raises(ValueError, match="frag capacity"):
         tdevice.compare(codes, None, cfg, "cpu")
     ok = tdevice.compare(codes, None, cfg.replace(seed_capacity=2), "cpu")
-    _assert_frag_equal(ok, orc.compare(codes, None, cfg))
+    _assert_frag_equal(ok, orc.compare(codes, None, _ref(cfg)))
 
 
 @pytest.mark.parametrize("name,codes,cfg", [
@@ -141,7 +148,7 @@ def test_fragment_capacity_overflow_raises():
 def test_edge_inputs(name, codes, cfg):
     got = tdevice.compare(codes, None, cfg, "cpu")
     assert got["xStart"].shape[0] == 0, name
-    _assert_frag_equal(got, orc.compare(codes, None, cfg))
+    _assert_frag_equal(got, orc.compare(codes, None, _ref(cfg)))
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -165,14 +172,15 @@ def test_unported_paths_raise(tmp_path):
 
 NO_JAX = """
 import sys
-sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["jax"] = None          # any import of jax now raises ImportError,
+sys.modules["repkiller_tpu"] = None  # and so does any of the JAX package
 sys.path.insert(0, {root!r})
 import repkiller_tpu_torch
 import repkiller_tpu_torch.cli
 import chip_smoke                  # imported, main() not run
-from repkiller_tpu.config import Config
-from repkiller_tpu.io import codec
-from repkiller_tpu.utils import synth
+from repkiller_tpu_torch.config import Config
+from repkiller_tpu_torch.io import codec
+from repkiller_tpu_torch.utils import synth
 g = synth.plant(5000, [(300, 3, 0.03, 1)], seed=3)
 y = g.codes[500:4500].copy()                        # shares X's sequence
 y[::97] = (y[::97] + 1) % 4
@@ -191,8 +199,9 @@ assert repkiller_tpu_torch.cli.main(
 
 
 def test_port_never_imports_jax(tmp_path):
-    """With jax blocked: the banded and the default (ungapped) Config, self
-    and pairwise, and the CLI's run."""
+    """With jax and the JAX package blocked: the banded and the default
+    (ungapped) Config, self and pairwise, and the CLI's run; and no line of
+    the port or of chip_smoke.py imports either."""
     code = NO_JAX.format(root=str(ROOT), tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
@@ -201,7 +210,8 @@ def test_port_never_imports_jax(tmp_path):
     assert proc.stdout.count(" fragments ") == 4, proc.stdout
     assert '"stage": "run"' in proc.stdout, proc.stdout
     assert (tmp_path / "o.frags.csv").exists()
-    pattern = re.compile(r"import jax|from jax")
+    pattern = re.compile(r"import jax|from jax|"
+                         r"^\s*(from|import) repkiller_tpu(\.| |$)")
     files = [ROOT / "chip_smoke.py"] + sorted((ROOT / "repkiller_tpu_torch").rglob("*.py"))
     hits = [f"{p}:{i}" for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)

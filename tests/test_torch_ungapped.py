@@ -7,21 +7,30 @@ and the oracle's ``_directional_gain``; the fragment wrapper against
 ``chain/diagonal.extend_gated`` and the oracle's. All outputs are
 integers: the tolerance is exact equality."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repkiller_tpu.chain.diagonal import extend_gated as j_extend_gated
-from repkiller_tpu.config import Config
+from repkiller_tpu.config import Config as JConfig
 from repkiller_tpu.extend import ungapped as jungapped
 from repkiller_tpu.extend import ungapped_pallas as up
 from repkiller_tpu.oracle import pipeline as orc
 from repkiller_tpu_torch.chain.diagonal import extend_gated as t_extend_gated
+from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.convert import to_numpy, to_torch
 from repkiller_tpu_torch.extend import extend_dispatch
 from repkiller_tpu_torch.extend.ungapped import direction_plain
 from repkiller_tpu_torch.extend.ungapped_kernel import _direction, extend_ungapped
+
+
+def _ref(cfg: Config) -> JConfig:
+    """The JAX package's Config with the same fields, for its calls."""
+    return JConfig(**dataclasses.asdict(cfg))
+
 
 K = 8
 
@@ -59,7 +68,7 @@ def _oracle_direction(px, py, valid, cx, cy, base_off, step, cfg):
     xa = cx[np.clip(gx, 0, cx.shape[0] - 1)]
     ya = cy[np.clip(gy, 0, cy.shape[0] - 1)]
     eq = ok & (xa == ya) & (xa < 4)
-    out = orc._directional_gain(eq, ok, cfg)
+    out = orc._directional_gain(eq, ok, _ref(cfg))
     return [np.where(valid, o, 0) for o in out]
 
 
@@ -131,7 +140,7 @@ def _pair_seeds(cfg, seed=5, L=5000, cap=512):
     cy[snp] = (cy[snp] + rng.integers(1, 4, snp.sum())) % 4
     cy[3000:3012] = 4
     ix, iy = orc.build_index(cx, cfg.k), orc.build_index(cy, cfg.k)
-    px, py = orc.filter_hits(*orc.find_hits(ix, iy, cfg), cfg)
+    px, py = orc.filter_hits(*orc.find_hits(ix, iy, _ref(cfg)), _ref(cfg))
     n = px.shape[0]
     assert 0 < n < cap
     pad = lambda a: np.concatenate([a, np.zeros(cap - n, a.dtype)])  # noqa: E731
@@ -146,7 +155,7 @@ def test_extend_gated_ungapped_matches_jax_and_oracle(gate_stride):
                  max_extend=256)
     px, py, valid, n, cx, cy = _pair_seeds(cfg)
     want, wv = j_extend_gated(*[jnp.asarray(a) for a in (px, py, valid, cx, cy)],
-                              cfg, n_live=jnp.int32(n))
+                              _ref(cfg), n_live=jnp.int32(n))
     t = to_torch((px, py, valid, cx, cy), "cpu")
     got, gv = t_extend_gated(*t, cfg, n_live=torch.tensor(n))
     assert np.array_equal(to_numpy(gv), np.asarray(wv))
@@ -154,13 +163,13 @@ def test_extend_gated_ungapped_matches_jax_and_oracle(gate_stride):
         assert np.array_equal(to_numpy(got[f]), np.asarray(want[f])), f
 
     # the oracle lists anchors' fragments, then survivors': compare as rows
-    ofrag = orc.extend_gated(px[:n], py[:n], cx, cy, cfg)
+    ofrag = orc.extend_gated(px[:n], py[:n], cx, cy, _ref(cfg))
     rows = lambda fr, m: sorted(zip(*[np.asarray(fr[f])[m]  # noqa: E731
                                       for f in orc.FRAG_FIELDS]))
     gvn = to_numpy(gv)
     assert rows(to_numpy(got), gvn) == rows(ofrag, slice(None))
     if gate_stride:
-        anchors = orc.gate_anchors(px[:n], py[:n], cfg)
+        anchors = orc.gate_anchors(px[:n], py[:n], _ref(cfg))
         kept = gvn[:n]
         assert (~kept).any(), "no seed was covered"
         assert (kept & ~anchors).any(), "no non-anchor survived"
