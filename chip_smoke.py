@@ -7,7 +7,10 @@ Phases, each of which must pass (any failure exits non-zero):
      lines;
   2. K2 == its plain torch version (extend/ungapped.direction_plain),
      exactly, on random seeds at E = 64, 256 and 2048, x_drop 12 and 40,
-     both directions;
+     both directions; on the chunk-boundary cases of the tests (stops at
+     steps 31-33 and 63-64, a best tied across step 32, seeds to E, scores
+     1000/-3000, the drop switched off) and on one warp holding 5 seeds
+     that run to E = 2048 among seeds that stop within 40 steps;
   3. K1 == its plain torch version (extend/banded.direction_plain),
      exactly, on random seeds at bands 4, 8, 15, 16 in the phase-1 shape
      (192 rows, jcap 192 + band) and the full shapes (512 and 2048 rows,
@@ -16,7 +19,8 @@ Phases, each of which must pass (any failure exits non-zero):
      wider than the warp kernel's 96 cells) in the phase-1 shape and at
      2048 rows; at bands 15, 31 and 47 with other scores, gaps and
      x_drops (K1_SCORES; at band 15 also scores at the edge of the warp
-     kernel's keys), and scores past that edge raise;
+     kernel's keys), and at bands 15, 47 and 48 with scores past that
+     edge (8000/-8000/1000/500), which run in the wide kernel;
   4. the golden 30 kb test: CSV and BED byte for byte through api.compare,
      and through ``python -m repkiller_tpu_torch.cli run``;
   5. the banded headline (bench.py's 4.19 Mbp synthetic genome, k=12,
@@ -25,25 +29,29 @@ Phases, each of which must pass (any failure exits non-zero):
      time by kernel and the device's idle share from torch.profiler; then
      K1 == the plain version on the headline's own seed sets (phase 1 over
      every seed, then the 2048-row pass over the seeds phase 1 left alive),
-     K1's time on each of those 8 sets, and on strand f's right-direction
+     K1's device time on each of those 8 sets, and on strand f's right-direction
      sets the plain version's time, the seed-rows the set needs (counted
      by the plain version) and K1's bound derived from them;
   6. the ungapped headline (the same genome, extend_mode "ungapped", the
      tool's default): 976 fragments, hit totals [543009, 535532], seeds
      [397907, 400603]; the same walls, stages and profile; then K2 == the
      plain version on every seed set the pipeline launched K2 with (both
-     strands, both directions, anchor and survivor passes, device n_live)
-     and K2's time against the plain version's and against its bound
-     from the steps the set needs (counted by the plain version);
+     strands, both directions, anchor and survivor passes, device n_live),
+     K2's device time on each of the 8 sets against its bound from the
+     steps the set needs (counted by the plain version), and on the first
+     set the plain version's time, the steps per seed, and K2's time with
+     the seeds over 256 and over 32 steps cleared and at E = 32;
   7. the pairwise strain pair of benchmarks/run_config3.py at 4.6 Mbp
      (config #3) through api.compare, banded and ungapped: fragment
      counts, hit totals and seeds against the JAX package's records, walls,
      stage split and peak memory.
 
 Every main-path run (5, 6 and both runs of 7) sets the kernels' launch
-counts to 0 just before it and reads them just after. Informational lines
-come first; the last two lines are the kernels' JSON record and the
-device's JSON record. Imports nothing of JAX.
+counts to 0 just before it and reads them just after. A kernel's device
+time is taken with CUDA events around 20 launches that the host queues
+while a ``torch.cuda._sleep`` holds the stream, so it leaves out the host's
+pace. Informational lines come first; the last two lines are the kernels'
+JSON record and the device's JSON record. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +76,10 @@ from repkiller_tpu_torch.utils import synth
 from repkiller_tpu_torch.utils.scan import partition_live
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tests"))
+from test_torch_cuda import (ungapped_boundary_case,  # noqa: E402
+                             ungapped_long_seeds_case)
+
 GOLDEN = ROOT / "tests" / "golden"
 GOLDEN_CFG = Config(k=12, strands="fr", hit_capacity=1 << 14, max_extend=512,
                     extend_mode="banded", band=8)
@@ -100,6 +112,10 @@ PHASE1_ROWS = 192
 # (match, mismatch, gap_open, gap_extend, x_drop) besides the defaults
 K1_SCORES = [(4, -4, 8, 0, 40), (4, -4, 60, 2, 40), (1, -3, 5, 2, 20),
              (2, -7, 8, 1, 25), (4, -4, 8, 2, 2**31 - 1), (4, -4, 8, 2, -3)]
+# (match, mismatch, x_drop) of K2's chunk-boundary cases
+K2_SCORES = [(4, -4, 20), (1000, -3000, 15000), (4, -4, 2**31 - 1),
+             (1000, -3000, 2**31 - 1)]
+SLEEP_CYCLES = 200_000_000  # about 0.1 s at the H100's 1.98 GHz
 KERNELS = {"banded": _cuda.banded_gotoh, "ungapped": _cuda.ungapped_xdrop}
 # Bounds. K1 does about 30 int32 operations (adds, compares, selects,
 # maxes) per band cell per row a seed runs, K2 about 12 per step; both run
@@ -266,6 +282,26 @@ def phase_k2_vs_plain(dev) -> int:
                 print(f"# K2 == plain: x_drop {x_drop} E {E} step {step:+d}: "
                       f"exact ({int((got[0] == E).sum())} seeds at the cap, "
                       f"longest {int(got[0].max())})")
+    k = UNGAPPED_CFG.k
+    for step in (+1, -1):
+        base_off = k if step > 0 else -1
+        for m, mm, x_drop in K2_SCORES:
+            *case, n_live = ungapped_boundary_case(step, k, m, mm, 5)
+            inputs = [torch.from_numpy(a).to(dev) for a in case]
+            err, got = compare_k2(inputs, (base_off, step, m, mm, x_drop, 128),
+                                  n_live)
+            worst = max(worst, err)
+            print(f"# K2 == plain on the chunk boundaries: scores {m} {mm} "
+                  f"x_drop {x_drop} step {step:+d}: exact (ext "
+                  f"{got[0][:n_live].tolist()})")
+        *case, long = ungapped_long_seeds_case(step, k)
+        inputs = [torch.from_numpy(a).to(dev) for a in case]
+        err, got = compare_k2(inputs, (base_off, step, 4, -4, 4, 2048), 32)
+        worst = max(worst, err)
+        check(bool((got[0][torch.from_numpy(long).to(dev)] == 2048).all()),
+              "a long seed of the one-warp case stopped early")
+        print(f"# K2 == plain on one warp with 5 seeds to E = 2048, step "
+              f"{step:+d}: exact (ext {got[0].tolist()})")
     return worst
 
 
@@ -303,14 +339,24 @@ def phase_k1_vs_plain(dev) -> int:
             print(f"# K1 == plain: band {band} scores {m} {mm} {go} {ge} "
                   f"x_drop {xd}, both directions: exact ({int(got[4].sum())}"
                   " alive at the cap)")
-    try:
-        inputs, n_live = random_case(7, 64, 60000, dev)
-        _cuda.banded_gotoh(*inputs, 12, 1, 8000, -8000, 40, PHASE1_ROWS, 15,
-                           1000, 500, PHASE1_ROWS + 15, n_live)
-    except ValueError as e:
-        print(f"# K1 refuses scores past its keys: {e}")
-    else:
-        raise RuntimeError("K1 took scores past its keys")
+    # scores past the warp kernel's keys: the wide kernel takes them
+    lib = _cuda._lib(_cuda.BANDED_SOURCE)
+    for band in (15, 47, 48):
+        inputs, n_live = random_case(300 + band, 4096, 60000, dev)
+        cfg = HEADLINE_CFG.replace(band=band, match=8000, mismatch=-8000,
+                                   gap_open=1000, gap_extend=500)
+        wide = lib.rk_banded_needs_scratch(band, cfg.match, cfg.mismatch,
+                                           PHASE1_ROWS, cfg.gap_open,
+                                           cfg.gap_extend)
+        check(wide == 1, f"band {band}, scores 8000/-8000: not the wide kernel")
+        for base_off, step in ((cfg.k, +1), (-1, -1)):
+            args = kernel_args(cfg, PHASE1_ROWS, PHASE1_ROWS + band, base_off,
+                               step)
+            err, got = compare_k1(inputs, args, n_live)
+            worst = max(worst, err)
+        print(f"# K1 == plain past the warp kernel's keys: band {band} scores "
+              f"8000 -8000 1000 500, both directions: exact in the wide "
+              f"kernel ({int(got[4].sum())} alive at the cap)")
     return worst
 
 
@@ -418,9 +464,16 @@ def phase_profile(cx: torch.Tensor, cfg: Config, smi: str):
           f"share {1 - busy_us / wall_us:.4f} on {smi}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"#   {us / 1e3:9.3f} ms  {name[:100]}")
+    for name, us in by_name.items():
+        if "gotoh" in name or "xdrop" in name:
+            n = sum(1 for e in prof.events() if e.name == name
+                    and str(e.device_type).endswith("CUDA"))
+            print(f"#   kernel {name[:60]}: {us / 1e3:.3f} ms in {n} launches")
 
 
 def time_cuda(fn, reps: int) -> float:
+    """ms per call between CUDA events around ``reps`` calls, at the
+    host's pace: for the plain versions, which wait on the device."""
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -428,6 +481,25 @@ def time_cuda(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_device(fn, reps: int = 20) -> float:
+    """Device ms per launch of a kernel's wrapper: the host queues the
+    events and ``reps`` launches while ``torch.cuda._sleep`` holds the
+    stream, so the launches run back to back; fails if the sleep ended
+    before the host had queued them all."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    check(not a.query(), "the device reached the timed launches before the "
+          "host had queued them: raise SLEEP_CYCLES")
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
@@ -467,7 +539,7 @@ def phase_k1_headline_sets(cx: torch.Tensor, smi: str, rate: float):
             sets += [(name, "phase 1", p1), (name, "full depth", p2)]
     total, times = {"phase 1": 0.0, "full depth": 0.0}, []
     for name, kind, (inp, args, nl) in sets:
-        times.append(time_cuda(lambda: _cuda.banded_gotoh(*inp, *args, nl), 20))
+        times.append(time_device(lambda: _cuda.banded_gotoh(*inp, *args, nl)))
         total[kind] += times[-1]
         print(f"# K1 on the headline, {name}, {kind}: {times[-1]:.6f} ms")
     print(f"# K1 on the headline's 8 sets: phase 1 {total['phase 1']:.6f} ms, "
@@ -496,10 +568,10 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     launches K2 with: the pipeline runs once with the kernel's wrapper
     recording its arguments (both strands; right and left; the compacted
     anchor pass and survivor pass, each with a device ``n_live``), then
-    each recorded launch is held against the plain version. Times K2 and
-    the plain version on the first launch (strand f, anchors, right),
-    with K2's bound from the steps that launch needs -> (worst error, ms,
-    plain ms, bound ms, bound_by)."""
+    each recorded launch is held against the plain version. Times K2 on
+    every set, with its bound from the steps the set needs, and the plain
+    version on the first set (strand f, anchors, right) -> that set's
+    (worst error over all, ms, plain ms, bound ms, bound_by)."""
     kernel = _cuda.ungapped_xdrop
     recorded = []
 
@@ -528,18 +600,45 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
               f"{'fr'[i // 4]}, {('anchors', 'survivors')[i // 2 % 2]}, step "
               f"{rest[1]:+d}): exact ({int(n_live)} live of {inputs[0].shape[0]}"
               f", longest {int(got[0].max())})")
+    timed = []
+    for i, args in enumerate(recorded):
+        ms = time_device(lambda: kernel(*args))
+        per_seed = ungapped.direction_plain(*args, count_steps=True)[3]
+        steps = int(per_seed.sum(dtype=torch.int64))
+        if i == 0:
+            steps0 = per_seed
+        ops = steps * K2_OPS_PER_STEP
+        nbytes = io_bytes(args[:5], args[-1], 3)
+        bound_ms, by = bound(ops, nbytes, rate)
+        print(f"# K2 on the ungapped headline, launch {i} ({int(args[-1])} "
+              f"live of {args[0].shape[0]}): kernel {ms:.6f} ms; {steps} steps "
+              f"x {K2_OPS_PER_STEP} int32 ops = {ops} ops at {rate / 1e12:.4f} "
+              f"T op/s; {nbytes} bytes; bound {bound_ms:.6f} ms ({by}), "
+              f"roofline share {bound_ms / ms:.4f} on {smi}")
+        timed.append((ms, bound_ms, by))
+    print(f"# K2 on the headline's 8 sets: {sum(t[0] for t in timed):.6f} ms "
+          f"in all on {smi}")
+    # launch 0's steps per seed, and K2 without its longest seeds and over
+    # its first 32 steps only: what the tail, Phase B and Phase A cost
     args = recorded[0]
-    ms = time_cuda(lambda: kernel(*args), 20)
+    live = args[2][:int(args[-1])]
+    st = steps0[:int(args[-1])][live]
+    p50, p99 = torch.quantile(st.float(), torch.tensor([0.5, 0.99], device=st.device)).tolist()
+    print(f"# K2 launch 0 steps per seed: {st.numel()} seeds, mean "
+          f"{st.float().mean().item():.2f}, p50 {p50:.0f}, p99 {p99:.0f}, max "
+          f"{int(st.max())}; {int((st > 32).sum())} over 32 steps "
+          f"({int(st[st > 32].sum())} steps), {int((st > 256).sum())} over 256")
+    for cut in (256, 32):
+        short = args[:2] + (args[2] & (steps0 <= cut),) + args[3:]
+        print(f"# K2 on launch 0 with the seeds over {cut} steps cleared: "
+              f"{time_device(lambda: kernel(*short)):.6f} ms on {smi}")
+    first32 = args[:10] + (32,) + args[11:]
+    print(f"# K2 on launch 0 at E = 32 (Phase A alone): "
+          f"{time_device(lambda: kernel(*first32)):.6f} ms on {smi}")
     plain_ms = time_cuda(lambda: ungapped.direction_plain(*args), 3)
-    steps = int(ungapped.direction_plain(*args, count_steps=True)[3])
-    ops = steps * K2_OPS_PER_STEP
-    nbytes = io_bytes(args[:5], args[-1], 3)
-    bound_ms, by = bound(ops, nbytes, rate)
+    ms, bound_ms, by = timed[0]
     print(f"# K2 on the ungapped headline, strand f, anchors, right "
-          f"direction: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms; {steps} "
-          f"steps x {K2_OPS_PER_STEP} int32 ops = {ops} ops at "
-          f"{rate / 1e12:.4f} T op/s; {nbytes} bytes; bound {bound_ms:.6f} ms "
-          f"({by}), roofline share {bound_ms / ms:.4f} on {smi}")
+          f"direction: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms")
     return worst, ms, plain_ms, bound_ms, by
 
 

@@ -39,10 +39,11 @@
 //   - Both keys need every live value within 2^23 of best. Every value is
 //     the score of a path of at most 2E + W steps, so |value| and best lie
 //     within P = (2E + W) * (|match| + |mismatch| + |gap_open| +
-//     |gap_extend|); the keys hold 2P + W*|gap_extend|, and the launch
-//     refuses scores where that reaches 2^23 (rk_banded_unsupported). For
-//     the same reason an x_drop above 2P prunes nothing that 2P does not,
-//     and one below -2P - 1 prunes every cell at row 0, as -2P - 1 does, so
+//     |gap_extend|); the keys hold 2P + W*|gap_extend|. Settings where that
+//     reaches 2^23 run in the wide kernel below (rk_banded_needs_scratch),
+//     which packs no keys. For the same reason an x_drop above 2P prunes
+//     nothing that 2P does not, and one below -2P - 1 prunes every cell at
+//     row 0, as -2P - 1 does, so
 //     x_drop is clamped to [-2P - 1, 2P] without changing any output: any
 //     x_drop is taken (a huge one switches the drop off), and the threshold
 //     best - x_drop stays far above DEAD.
@@ -67,12 +68,13 @@
 // 31 cells, so the kernel is bound by instruction throughput, at 2.3x the
 // INT32 bound of 30 operations per cell.
 //
-// Rows wider than REGISTER_W = 96 cells (band > 47) run in
-// banded_gotoh_wide_kernel: one thread per seed with the four DP rows in a
-// global scratch buffer that the wrapper allocates (its size from
-// rk_banded_register_w), the horizontal gap as the oracle's sequential scan,
-// and the y codes read straight from cy. It is right, not fast; no
-// configuration in use takes it.
+// Rows wider than REGISTER_W = 96 cells (band > 47), and scores whose values
+// could leave the warp kernel's keys, run in banded_gotoh_wide_kernel: one
+// thread per seed with the four DP rows in a global scratch buffer that the
+// wrapper allocates (rk_banded_needs_scratch says when), the horizontal gap
+// as the oracle's sequential scan, and the y codes read straight from cy. It
+// takes every score and is right, not fast; no configuration in use takes
+// it. The choice is made from the arguments before the launch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -443,41 +445,37 @@ static long long path_span(int band, int match, int mismatch, int E,
 
 extern "C" {
 
-// The widest row (2 * band + 1 cells) that runs without scratch.
-int rk_banded_register_w() { return REGISTER_W; }
-
-// Why K1 cannot take these settings, or NULL when it can: the warp kernel's
-// packed keys must hold every live value's distance from best.
-const char* rk_banded_unsupported(int band, int match, int mismatch, int E,
-                                  int gap_open, int gap_extend) {
-    if (band < 0) return "band is negative";
+// Which kernel a launch with these settings runs: 0 the warp kernel, 1 the
+// wide kernel, which needs the (4, 2 * band + 1, n) int32 scratch buffer;
+// -1 when the settings are invalid (band < 0). The warp kernel takes rows of
+// at most REGISTER_W cells whose values all fit its packed keys.
+int rk_banded_needs_scratch(int band, int match, int mismatch, int E,
+                            int gap_open, int gap_extend) {
+    if (band < 0) return -1;
     const long long W = 2LL * band + 1;
-    if (W > REGISTER_W) return nullptr;
-    if (2 * path_span(band, match, mismatch, E, gap_open, gap_extend) +
-            W * llabs(gap_extend) >= KEY_SPAN)
-        return "2 * (2 * E + 2 * band + 1) * (|match| + |mismatch| + "
-               "|gap_open| + |gap_extend|) + (2 * band + 1) * |gap_extend| "
-               "reaches 2^23, beyond the packed keys of the warp kernel "
-               "(band <= 47)";
-    return nullptr;
+    if (W > REGISTER_W) return 1;
+    const long long keys = 2 * path_span(band, match, mismatch, E, gap_open,
+                                         gap_extend) + W * llabs(gap_extend);
+    return keys >= KEY_SPAN ? 1 : 0;
 }
 
 // Launches K1 on `stream`; returns the cudaError_t of the launch (0 = ok),
-// cudaErrorInvalidValue for settings rk_banded_unsupported names. All
+// cudaErrorInvalidValue for band < 0 or a missing scratch buffer. All
 // pointers are device pointers; n_live points to one int32 on the device.
-// scratch (int32, 4 * W * n) is used, and required, only when
-// W > rk_banded_register_w().
+// scratch (int32, 4 * (2 * band + 1) * n) is used, and required, when
+// rk_banded_needs_scratch gives 1.
 int rk_banded_gotoh(const int* px, const int* py, const uint8_t* valid,
                     const uint8_t* cx, long long lx, const uint8_t* cy,
                     long long ly, const int* n_live, int n, int base_off,
                     int step, int match, int mismatch, int x_drop, int E,
                     int band, int gap_open, int gap_extend, int jcap, int* out,
                     int* scratch, void* stream) {
+    const int wide = rk_banded_needs_scratch(band, match, mismatch, E,
+                                             gap_open, gap_extend);
+    if (wide < 0 || (wide && n > 0 && scratch == nullptr))
+        return (int)cudaErrorInvalidValue;
     if (n <= 0) return 0;
     const int W = 2 * band + 1;
-    if (rk_banded_unsupported(band, match, mismatch, E, gap_open, gap_extend) ||
-        (W > REGISTER_W && scratch == nullptr))
-        return (int)cudaErrorInvalidValue;
     // x_drop clamped to [-2P - 1, 2P] (header note), which changes no output
     const long long span = 2 * path_span(band, match, mismatch, E, gap_open,
                                          gap_extend);
@@ -486,16 +484,16 @@ int rk_banded_gotoh(const int* px, const int* py, const uint8_t* valid,
     Params p{px, py, valid, cx, cy, lx, ly, n_live, n, base_off, step,
              match, mismatch, xd, E, band, gap_open, gap_extend, jcap, out};
     cudaStream_t st = (cudaStream_t)stream;
-    if (W <= 32) {
-        launch<1>(p, st);
-    } else if (W <= 64) {
-        launch<2>(p, st);
-    } else if (W <= REGISTER_W) {
-        launch<3>(p, st);
-    } else {
+    if (wide) {
         const int threads = 128;
         banded_gotoh_wide_kernel<<<(n + threads - 1) / threads, threads, 0,
                                    st>>>(p, scratch);
+    } else if (W <= 32) {
+        launch<1>(p, st);
+    } else if (W <= 64) {
+        launch<2>(p, st);
+    } else {
+        launch<3>(p, st);
     }
     return (int)cudaGetLastError();
 }

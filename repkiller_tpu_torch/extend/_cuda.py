@@ -94,11 +94,9 @@ def _lib(source: Path) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    if hasattr(lib, "rk_banded_unsupported"):
-        lib.rk_banded_register_w.argtypes = []
-        lib.rk_banded_register_w.restype = ctypes.c_int
-        lib.rk_banded_unsupported.argtypes = [_I] * 6
-        lib.rk_banded_unsupported.restype = ctypes.c_char_p
+    if hasattr(lib, "rk_banded_needs_scratch"):
+        lib.rk_banded_needs_scratch.argtypes = [_I] * 6
+        lib.rk_banded_needs_scratch.restype = ctypes.c_int
     lib.rk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rk_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -141,25 +139,20 @@ def banded_gotoh(px, py, valid, cx, cy, base_off: int, step: int,
     """Launch K1 on CUDA tensors -> (ei, ej, gain, idents, alive) int32[n];
     the same contract as extend.banded.direction_plain. ``n_live`` may be
     an int or a 0-d tensor; a tensor stays on the device (no host sync).
-    Rows wider than the kernel's ``rk_banded_register_w()`` cells run in a
-    (4, W, n) int32 scratch buffer allocated here. Raises ValueError for
-    the scores that ``rk_banded_unsupported`` refuses: those whose values
-    could leave the warp kernel's packed keys (csrc/banded_gotoh.cu says
-    why). Any x_drop is taken."""
+    Any scores and x_drop are taken. ``rk_banded_needs_scratch`` of the C
+    source picks the kernel from the arguments (csrc/banded_gotoh.cu says
+    why); the wide kernel runs in a (4, 2 * band + 1, n) int32 scratch
+    buffer allocated here. A band below 0 raises ValueError."""
     dev = _check_seeds("banded_gotoh", px, py, valid, cx, cy)
-    lib = _lib(BANDED_SOURCE)
-    why = lib.rk_banded_unsupported(band, match, mismatch, E, gap_open,
-                                    gap_extend)
-    if why is not None:
-        raise ValueError(f"banded_gotoh cannot take match {match}, mismatch "
-                         f"{mismatch}, gap_open {gap_open}, gap_extend "
-                         f"{gap_extend}, E {E}, band {band}: {why.decode()}")
+    wide = _lib(BANDED_SOURCE).rk_banded_needs_scratch(
+        band, match, mismatch, E, gap_open, gap_extend)
+    if wide < 0:
+        raise ValueError(f"banded_gotoh needs band >= 0, got {band}")
     n = px.shape[0]
     nl = torch.as_tensor(n_live, dtype=torch.int32, device=dev).reshape(())
     out = torch.empty((5, n), dtype=torch.int32, device=dev)
-    W = 2 * band + 1
-    scratch = (torch.empty((4, W, n), dtype=torch.int32, device=dev)
-               if n and W > lib.rk_banded_register_w() else None)
+    scratch = (torch.empty((4, 2 * band + 1, n), dtype=torch.int32,
+                           device=dev) if n and wide else None)
     if n:
         _launch(BANDED_SOURCE, "rk_banded_gotoh", dev,
                 px.data_ptr(), py.data_ptr(), valid.data_ptr(),

@@ -42,8 +42,8 @@ def direction_plain(px, py, valid, cx, cy, base_off: int, step: int,
     The base consumed at step g (0-based) is ``cx[px + base_off + step*g]``
     and the same for y (right: base_off=k, step=+1; left: base_off=-1,
     step=-1). ``n_live`` is an int or a 0-d tensor. ``count_steps``
-    appends a fourth output: the number of steps the seeds examine, each
-    up to and including its stop (a 0-d int64 tensor)."""
+    appends a fourth output: the steps each seed examines, up to and
+    including its stop (int32[n])."""
     check_max_extend(E)
     n = px.shape[0]
     dev = px.device
@@ -56,7 +56,7 @@ def direction_plain(px, py, valid, cx, cy, base_off: int, step: int,
     act = torch.nonzero(valid[:min(n, int(n_live))])[:, 0]
     s_carry, rm_carry, id_carry = (torch.zeros(act.shape[0], dtype=i32,
                                                device=dev) for _ in range(3))
-    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = torch.zeros(n, dtype=i32, device=dev)
     for c in range(E // CHUNK):
         if act.shape[0] == 0:
             break
@@ -76,7 +76,7 @@ def direction_plain(px, py, valid, cx, cy, base_off: int, step: int,
         any_stop = stop.any(1)
         t = torch.where(any_stop, torch.argmax(stop.to(i32), 1).to(i32), CHUNK)
         if count_steps:
-            steps += torch.where(any_stop, t + 1, CHUNK).sum()
+            steps[act] += torch.where(any_stop, t + 1, CHUNK)
         ids = id_carry[:, None] + torch.cumsum(eq.to(i32), 1, dtype=i32)
         s_masked = torch.where(u < t[:, None], s, NEG_INF)
         bidx = torch.argmax(s_masked, 1, keepdim=True)          # first argmax

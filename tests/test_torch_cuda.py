@@ -44,6 +44,70 @@ def _case(seed, dev, n=1000, L=8000):
     return [torch.from_numpy(a).to(dev) for a in (px, py, valid, cx, cy)], n_live
 
 
+def ungapped_boundary_case(step, k, match, mismatch, run, E=128):
+    """Seeds on the identity diagonal whose extension in direction ``step``
+    (+1 from px + k, -1 from px - 1) ends at chosen steps -> (px, py,
+    valid, cx, cy, n_live) as numpy arrays. ``run`` mismatches in a row
+    stop a seed whose x_drop is run * -mismatch at the run's last step:
+    - stops by x-drop at steps 31, 32, 33, 63 and 64, one of them with an N
+      in x (valid, never a match), and by leaving the sequence at the same
+      steps (those seeds sit at the sequence's ends);
+    - a best tied across the chunk boundary (at steps 30 and 31 against
+      steps after 31; the earlier one must win), then only mismatches;
+    - seeds that run to E; an invalid seed; slots from n_live on.
+    ``-mismatch`` must be a multiple of ``match`` (for the ties)."""
+    assert -mismatch % match == 0
+    back = -mismatch // match  # matches that undo one mismatch
+    rng = np.random.default_rng(run * 7 + back)
+    span, margin = E + 2 * run + 8, 128
+    plans = []  # per seed: the steps that mismatch, and which of them is N
+    for t in (31, 32, 33, 63, 64):
+        plans.append((range(t - run + 1, t + 1), t - run + 1 if t == 33 else -1))
+    for g1 in (30, 31):  # best at g1, one mismatch, `back` matches: a tie
+        plans.append(([g1 + 1] + list(range(g1 + 2 + back, E)), -1))
+    plans += [((), -1), ((), -1)]
+    L = 2 * margin + span * len(plans)
+    cx = rng.integers(0, 4, L, dtype=np.uint8)
+    cy = cx.copy()
+    pos0 = []  # position of step 0 of each seed
+    for i, (mis, n_at) in enumerate(plans):
+        p0 = margin + i * span + (4 if step > 0 else span - 4)
+        pos0.append(p0)
+        for g in mis:
+            q = p0 + step * g
+            cy[q] = (cx[q] + 1) % 4
+            if g == n_at:
+                cx[q] = 4
+    for t in (31, 32, 33, 63, 64):  # step t is the first outside the sequence
+        pos0.append(L - t if step > 0 else t - 1)
+    base_off = k if step > 0 else -1
+    px = np.array(pos0, np.int64) - base_off
+    px = np.concatenate([px, px[:3]]).astype(np.int32)  # 3 slots past n_live
+    valid = np.ones(px.shape[0], bool)
+    n_live = px.shape[0] - 3
+    valid[n_live:] = False
+    valid[len(plans) - 1] = False
+    return px, px.copy(), valid, cx, cy, n_live
+
+
+def ungapped_long_seeds_case(step, k, E=2048, n=32):
+    """n seeds on the identity diagonal, 5 of which run to E in direction
+    ``step`` while each of the others meets one mismatch after 1-40 steps
+    (at x_drop 4 and scores 4/-4 it stops there) -> (px, py, valid, cx,
+    cy, the long seeds' slots) as numpy arrays."""
+    rng = np.random.default_rng(5 + step)
+    span = E + 64
+    cx = rng.integers(0, 4, n * span, dtype=np.uint8)
+    cy = cx.copy()
+    long = rng.choice(n, 5, replace=False)
+    pos0 = np.arange(n) * span + (16 if step > 0 else span - 16)
+    for i in np.setdiff1d(np.arange(n), long):
+        q = pos0[i] + step * int(rng.integers(1, 41))
+        cy[q] = (cx[q] + 1) % 4
+    px = (pos0 - (k if step > 0 else -1)).astype(np.int32)
+    return px, px.copy(), np.ones(n, bool), cx, cy, long
+
+
 def _check_k1(inputs, n_live, band, E, jcap, gpu, x_drop=40,
               scores=(4, -4, 8, 2)):
     """K1 against the plain version on both directions; ``scores`` is
@@ -102,17 +166,14 @@ def test_kernel_matches_plain_at_the_key_edge(gpu):
               scores=(4000, -4000, 1000, 500))
 
 
-def test_kernel_refuses_scores_past_its_keys(gpu):
-    """Scores whose values could leave the packed keys raise, naming the
-    limit, before any launch; the plain version has no such limit."""
+@pytest.mark.parametrize("band", [15, 47, 48])
+def test_kernel_takes_scores_past_its_keys(gpu, band):
+    """Scores whose values could leave the warp kernel's packed keys (bands
+    15 and 47) run in the wide kernel, as rows wider than 96 cells (band
+    48) do: exact, launched, and nothing raises."""
     inputs, n_live = _case(1, gpu)
-    before = _cuda.banded_gotoh.launches
-    with pytest.raises(ValueError, match=r"reaches 2\^23"):
-        _cuda.banded_gotoh(*inputs, 12, 1, 8000, -8000, 40, 192, 15, 1000,
-                           500, 207, n_live)
-    assert _cuda.banded_gotoh.launches == before
-    # rows wider than the warp kernel's run in the wide kernel: no limit
-    _check_k1(inputs, n_live, 48, 192, 240, gpu, scores=(8000, -8000, 1000, 500))
+    _check_k1(inputs, n_live, band, 192, 192 + band, gpu,
+              scores=(8000, -8000, 1000, 500))
 
 
 @pytest.mark.parametrize("band", [8, 15, 31, 47])
@@ -178,6 +239,73 @@ def test_ungapped_kernel_matches_plain(gpu, E, x_drop):
         for name, g, w in zip(("ext", "gain", "idents"), got, want):
             assert torch.equal(g, w), (E, x_drop, step, name)
         assert (got[0] > 0).any()
+
+
+def _check_k2(inputs, n_live, args, gpu):
+    """K2 against the plain version, exactly, with a device n_live -> the
+    kernel's outputs."""
+    before = _cuda.ungapped_xdrop.launches
+    got = _cuda.ungapped_xdrop(*inputs, *args, torch.tensor(n_live, device=gpu))
+    assert _cuda.ungapped_xdrop.launches == before + 1
+    want = ungapped.direction_plain(*inputs, *args, n_live)
+    for name, g, w in zip(("ext", "gain", "idents"), got, want):
+        assert torch.equal(g, w), (args, name)
+    return got
+
+
+@pytest.mark.parametrize("match,mismatch,x_drop", [
+    (4, -4, 20), (1000, -3000, 15000), (4, -4, 2**31 - 1),
+    (1000, -3000, 2**31 - 1)])
+@pytest.mark.parametrize("step", [+1, -1])
+def test_ungapped_kernel_chunk_boundaries(gpu, match, mismatch, x_drop, step):
+    """Stops at steps 31-33 and 63-64, a best tied across the hand-off from
+    a lane to the warp at step 32, seeds that run to E, extreme scores and
+    the drop switched off (tests/test_torch_ungapped.py holds the plain
+    version against the JAX package on the same cases)."""
+    px, py, valid, cx, cy, n_live = ungapped_boundary_case(
+        step, 12, match, mismatch, 5)
+    inputs = [torch.from_numpy(a).to(gpu) for a in (px, py, valid, cx, cy)]
+    args = (12 if step > 0 else -1, step, match, mismatch, x_drop, 128)
+    got = _check_k2(inputs, n_live, args, gpu)
+    assert got[0][7] == 128 and list(got[0][9:14].tolist()) == [31, 32, 33, 63, 64]
+
+
+@pytest.mark.parametrize("step", [+1, -1])
+def test_ungapped_kernel_long_seeds_in_one_warp(gpu, step):
+    """One warp's 32 slots: 5 seeds run to E = 2048 among seeds that stop
+    after 1-40 steps."""
+    *case, long = ungapped_long_seeds_case(step, 12)
+    inputs = [torch.from_numpy(a).to(gpu) for a in case]
+    base_off = 12 if step > 0 else -1
+    got = _check_k2(inputs, 32, (base_off, step, 4, -4, 4, 2048), gpu)
+    ext = got[0].cpu().numpy()
+    short = np.setdiff1d(np.arange(32), long)
+    assert (ext[long] == 2048).all()
+    assert (ext[short] >= 1).all() and (ext[short] <= 40).all()
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 31, 32, 33])
+def test_ungapped_kernel_device_n_live(gpu, n_live):
+    """n = 524,288 slots, every one valid, with a device n_live: the live
+    slots match the plain version and every slot from n_live on reads
+    zero, though the output's memory held other values just before."""
+    n, L = 524288, 200000
+    rng = np.random.default_rng(n_live)
+    cx = rng.integers(0, 4, L, dtype=np.uint8)
+    cy = cx.copy()
+    mut = rng.random(L) < 0.05
+    cy[mut] = (cy[mut] + 1) % 4
+    px = rng.integers(0, L - 12, n).astype(np.int32)
+    inputs = [torch.from_numpy(a).to(gpu)
+              for a in (px, px.copy(), np.ones(n, bool), cx, cy)]
+    for base_off, step in ((12, +1), (-1, -1)):
+        # leave other values in the memory the caching allocator hands out
+        del_me = torch.full((3, n), -7, dtype=torch.int32, device=gpu)
+        del del_me
+        got = _check_k2(inputs, n_live, (base_off, step, 4, -4, 40, 2048), gpu)
+        assert not torch.stack(got)[:, n_live:].any()
+        if n_live:
+            assert (got[0][:n_live] > 0).any()
 
 
 def test_pipeline_on_card_matches_cpu(gpu):

@@ -25,6 +25,7 @@ from repkiller_tpu_torch.convert import to_numpy, to_torch
 from repkiller_tpu_torch.extend import extend_dispatch
 from repkiller_tpu_torch.extend.ungapped import direction_plain
 from repkiller_tpu_torch.extend.ungapped_kernel import _direction, extend_ungapped
+from test_torch_cuda import ungapped_boundary_case
 
 
 def _ref(cfg: Config) -> JConfig:
@@ -99,6 +100,47 @@ def test_direction_plain_matches_pallas_xla_oracle(max_extend, x_drop,
             assert np.array_equal(g, np.asarray(w)), (who, name)
     ext = got[0]
     assert (ext > 0).any() and (ext == 0).any()
+
+
+@pytest.mark.parametrize("match,mismatch,x_drop", [
+    (4, -4, 20), (1000, -3000, 15000), (4, -4, 2**31 - 1),
+    (1000, -3000, 2**31 - 1)])
+@pytest.mark.parametrize("base_off,step", [(K, +1), (-1, -1)])
+def test_direction_plain_chunk_boundaries(match, mismatch, x_drop, base_off,
+                                          step):
+    """The chunk contract the CUDA kernel's hand-off at step 32 relies on:
+    stops at steps 31, 32, 33, 63 and 64 (by x-drop, five mismatches, and
+    by leaving the sequence), a best tied across a chunk boundary, seeds
+    that run to E; extreme scores and the drop switched off. Held exactly
+    against the Pallas interpreter, the XLA ``_direction`` and the
+    oracle."""
+    E = 128
+    px, py, valid, cx, cy, n_live = ungapped_boundary_case(
+        step, K, match, mismatch, 5, E)
+    cfg = Config(k=K, max_extend=E, match=match, mismatch=mismatch,
+                 x_drop=x_drop)
+    sc = (match, mismatch, x_drop)
+    got = [to_numpy(g) for g in direction_plain(
+        *to_torch((px, py, valid, cx, cy), "cpu"), base_off, step, *sc, E,
+        torch.tensor(n_live))]
+    j = [jnp.asarray(a) for a in (px, py, valid, cx, cy)]
+    wants = [
+        ("pallas", up._direction(*j, base_off, step, *sc, E, seed_chunk=256,
+                                 interpret=True, n_live=jnp.int32(n_live),
+                                 packed_x=None, packed_y=None)),
+        ("xla", jungapped._direction(*j, base_off, step, *sc, E)),
+        ("oracle", _oracle_direction(px, py, valid, cx, cy, base_off, step,
+                                     cfg))]
+    for who, want in wants:
+        for name, g, w in zip(("ext", "gain", "idents"), got, want):
+            assert np.array_equal(g, np.asarray(w)), (who, name)
+    ext = got[0]
+    # the seeds that leave the sequence at steps 31..64 stop there; the
+    # tied bests keep the earlier step; two seeds run to E
+    assert list(ext[9:14]) == [31, 32, 33, 63, 64]
+    assert list(ext[5:7]) == [31, 32] and ext[7] == E
+    if x_drop < 2**31 - 1:
+        assert list(ext[:5]) == [27, 28, 29, 59, 60]
 
 
 def test_max_extend_must_be_a_multiple_of_32():
