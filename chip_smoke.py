@@ -44,10 +44,30 @@ Phases, each of which must pass (any failure exits non-zero):
   7. the pairwise strain pair of benchmarks/run_config3.py at 4.6 Mbp
      (config #3) through api.compare, banded and ungapped: fragment
      counts, hit totals and seeds against the JAX package's records, walls,
-     stage split and peak memory.
+     stage split and peak memory;
+  8. staged execution with resume on the banded headline: device.compare
+     with keep_intermediates equals the fused run field for field; the
+     rerun resumes from the stage files (no "seeds" or "extend" stage, no
+     K1 launch) with the same output; fused, staged and resumed walls;
+     then the device parts of compare_fn and of compare_staged without a
+     store, in turns;
+  9. the streamed driver (dist/windows.compare_streamed) on the headline at
+     window 2^20 (4 windows), banded and ungapped: equal to the fused
+     output, window hit totals and seeds summing to the single-shot ones;
+     then with out_dir, and a resume after the manifest's last two lines
+     are dropped; walls with and without out_dir, per-window seeds and
+     extend times, and the final merge; then K2 == the plain version on all
+     32 of its window sets and K1 on window 0 strand f's 4 (phase 1 and
+     the compacted re-run), and the device time of every window set;
+ 10. the streamed driver on config #3 with benchmarks/run_config3.py's
+     streamed Config (hit capacity 2^21, seed capacity 2^19, window 2^20;
+     5 windows), banded and ungapped: equal to phase 7's single-shot
+     output; wall, device part and final merge;
+ 11. ``--stage-timing`` through the CLI on golden30k: the reference's JSONL
+     records (stages and count fields).
 
-Every main-path run (5, 6 and both runs of 7) sets the kernels' launch
-counts to 0 just before it and reads them just after. A kernel's device
+Every main-path run (5, 6, both runs of 7, and those of 8-10) sets the
+kernels' launch counts to 0 just before it and reads them just after. A kernel's device
 time is taken with CUDA events around 20 launches that the host queues
 while a ``torch.cuda._sleep`` holds the stream, so it leaves out the host's
 pace. Informational lines come first; the last two lines are the kernels'
@@ -71,6 +91,7 @@ import torch
 
 from repkiller_tpu_torch import api, device as tdevice
 from repkiller_tpu_torch.config import Config
+from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, banded, ungapped
 from repkiller_tpu_torch.utils import synth
 from repkiller_tpu_torch.utils.scan import partition_live
@@ -108,6 +129,15 @@ PAIR_CFG = Config(k=12, strands="fr", extend_mode="banded",
 PAIR_HITS = [5357196, 1275396]
 PAIR_SEEDS = [1101683, 957924]
 PAIR_FRAGS = {"banded": 335570, "ungapped": 2290}
+# benchmarks/run_config3.py's streamed Config: capacities per window
+PAIR_STREAMED_CFG = Config(k=12, strands="fr", extend_mode="banded",
+                           hit_capacity=1 << 21, seed_capacity=1 << 19,
+                           max_extend=2048, window=1 << 20)
+HEADLINE_WINDOW = 1 << 20
+# utils/metrics.profile_stages' records: stage -> its count fields
+STAGE_RECORDS = {"h2d": ["bp"], "index_build": ["kmers"], "seed_join": ["hits"],
+                 "hit_filter": ["seeds"], "extension": ["seeds", "cells"],
+                 "merge_accept": ["fragments"], "families_host": ["families"]}
 PHASE1_ROWS = 192
 # (match, mismatch, gap_open, gap_extend, x_drop) besides the defaults
 K1_SCORES = [(4, -4, 8, 0, 40), (4, -4, 60, 2, 40), (1, -3, 5, 2, 20),
@@ -439,7 +469,7 @@ def phase_headline(codes: np.ndarray, cx: torch.Tensor, cfg: Config, smi: str):
         print(f"#   stage {name}: {[round(v, 6) for v in vals]} s")
     print(f"# {mode} headline peak device memory {peak:.3f} GiB; launches in "
           f"the counted run: {counted}; families {len(np.unique(frag['group']))}")
-    return counted
+    return counted, frag
 
 
 def phase_profile(cx: torch.Tensor, cfg: Config, smi: str):
@@ -563,6 +593,27 @@ def phase_k1_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     return worst, ms, plain_ms, bound_ms, by
 
 
+def record_launches(name: str, run):
+    """Call ``run()`` with the kernel wrapper ``_cuda.<name>`` recording its
+    arguments -> (the wrapper, the recorded argument tuples). The wrapper
+    counts into the module attribute of its name, which is the recorder
+    while it stands in: these launches are not a counted run."""
+    kernel = getattr(_cuda, name)
+    recorded = []
+
+    def recording(*args):
+        recorded.append(args)
+        return kernel(*args)
+
+    recording.launches = 0
+    setattr(_cuda, name, recording)
+    try:
+        run()
+    finally:
+        setattr(_cuda, name, kernel)
+    return kernel, recorded
+
+
 def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     """K2 == the plain version on every seed set the ungapped headline
     launches K2 with: the pipeline runs once with the kernel's wrapper
@@ -572,21 +623,8 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     every set, with its bound from the steps the set needs, and the plain
     version on the first set (strand f, anchors, right) -> that set's
     (worst error over all, ms, plain ms, bound ms, bound_by)."""
-    kernel = _cuda.ungapped_xdrop
-    recorded = []
-
-    def recording(*args):
-        recorded.append(args)
-        return kernel(*args)
-
-    # the wrapper counts into the module attribute of its name, which is
-    # this recorder while it stands in; these launches are not the counted run
-    recording.launches = 0
-    _cuda.ungapped_xdrop = recording
-    try:
-        tdevice.compare_fn(cx, None, UNGAPPED_CFG)
-    finally:
-        _cuda.ungapped_xdrop = kernel
+    kernel, recorded = record_launches(
+        "ungapped_xdrop", lambda: tdevice.compare_fn(cx, None, UNGAPPED_CFG))
     check(len(recorded) == 8, f"{len(recorded)} K2 launches, expected 8: 2 "
           "strands x (anchors, survivors) x 2 directions")
     worst = 0
@@ -645,15 +683,15 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
 def phase_pairwise(smi: str) -> dict:
     """Config #3 at full width: the device part once for its counts and
     stage split, then api.compare (host clustering included) for the
-    output and the end-to-end wall, with launches counted -> the counted
-    launches per mode."""
+    output and the end-to-end wall, with launches counted -> (the counted
+    launches per mode, the output per mode)."""
     t0 = time.perf_counter()
     a, b = make_strain_pair(PAIR_SIZE, PAIR_SEED)
     print(f"# config #3 strain pair: {a.shape[0]} + {b.shape[0]} bp, made in "
           f"{time.perf_counter() - t0:.3f} s")
     ca = torch.from_numpy(a.copy()).cuda()
     cb = torch.from_numpy(b.copy()).cuda()
-    counted = {}
+    counted, frags = {}, {}
     for mode in ("banded", "ungapped"):
         cfg = PAIR_CFG.replace(extend_mode=mode)
         timings = {}
@@ -673,6 +711,7 @@ def phase_pairwise(smi: str) -> dict:
         res = api.compare(a, b, cfg, device="cuda")
         wall = time.perf_counter() - t0
         counted[mode] = launches()
+        frags[mode] = res.frag
         check(counted[mode][mode] > 0, f"config #3 {mode} launched no kernel")
         check(res.n_fragments == PAIR_FRAGS[mode] and all(
             np.isfinite(v).all() and v.shape == (res.n_fragments,)
@@ -684,7 +723,211 @@ def phase_pairwise(smi: str) -> dict:
               f"{ {k: round(v, 6) for k, v in timings.items()} }), "
               f"api.compare wall {wall:.6f} s, peak device memory "
               f"{peak:.3f} GiB, launches {counted[mode]} on {smi}")
+    return counted, frags
+
+
+def check_same(got: dict, want: dict, what: str) -> None:
+    """Field for field equality of two fragment tables, group included."""
+    check(got.keys() == want.keys(), f"{what}: fields {sorted(got)}")
+    for f in want:
+        check(got[f].dtype == want[f].dtype and np.array_equal(got[f], want[f]),
+              f"{what}: field {f} differs from the single-shot output")
+
+
+def phase_staged(codes: np.ndarray, fused: dict, smi: str) -> dict:
+    """The banded headline through device.compare with keep_intermediates:
+    the staged run, then its resume from the stage files; both equal the
+    fused output -> the staged run's launch counts."""
+    cfg = HEADLINE_CFG
+    t0 = time.perf_counter()
+    tdevice.compare(codes, None, cfg, "cuda")
+    fused_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        walls, stages, counted = [], [], []
+        for run in ("staged", "resumed"):
+            timings = {}
+            reset_launches()
+            t0 = time.perf_counter()
+            frag = tdevice.compare(codes, None, cfg, "cuda", timings=timings,
+                                   keep_intermediates=tmp)
+            walls.append(time.perf_counter() - t0)
+            counted.append(launches())
+            stages.append(timings)
+            check_same(frag, fused, f"{run} banded headline")
+        nbytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
+    check(frag["xStart"].shape[0] == HEADLINE_FRAGS["banded"],
+          "staged headline fragments")
+    check(counted[0]["banded"] > 0, f"the staged run launched {counted[0]}")
+    check(counted[1]["banded"] == 0 and not {"seeds", "extend"} & set(stages[1]),
+          f"the resume ran {stages[1]} and launched {counted[1]}")
+    print(f"# staged banded headline: {frag['xStart'].shape[0]} fragments, "
+          f"equal to the fused run; walls: fused {fused_wall:.6f} s, staged "
+          f"{walls[0]:.6f} s, resumed {walls[1]:.6f} s on {smi}")
+    for run, timings, c in zip(("staged", "resumed"), stages, counted):
+        print(f"#   {run} stages { {k: round(v, 6) for k, v in timings.items()} }"
+              f", launches {c}")
+    print(f"#   stage files: {nbytes} bytes")
+    # the device parts of compare_fn and of compare_staged without a store,
+    # in turns: whether the fused path is worth keeping beside the staged
+    cx = torch.from_numpy(codes.copy()).cuda()
+    parts = {"fused": [], "staged": []}
+    for _ in range(5):
+        for name, fn in (("fused", tdevice.compare_fn),
+                         ("staged", tdevice.compare_staged)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n_frags, _, _ = fn(cx, None, cfg)
+            torch.cuda.synchronize()
+            parts[name].append(time.perf_counter() - t0)
+            check(int(n_frags) == HEADLINE_FRAGS["banded"],
+                  f"{name} device part gave {int(n_frags)} fragments")
+    print(f"# banded headline device part, in turns, median of 5: fused "
+          f"{statistics.median(parts['fused']):.6f} s, staged without a store "
+          f"{statistics.median(parts['staged']):.6f} s on {smi}; fused "
+          f"{[round(v, 6) for v in parts['fused']]}, staged "
+          f"{[round(v, 6) for v in parts['staged']]}")
+    return counted[0]
+
+
+def streamed_run(x, y, cfg, what: str, want: dict, smi: str, **kw):
+    """compare_streamed with launches counted and per-stage stats; its
+    output against ``want`` -> (wall, stats, launches)."""
+    stats = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    frag = compare_streamed(x, y, cfg, device="cuda", stats=stats, **kw)
+    wall = time.perf_counter() - t0
+    counted = launches()
+    check_same(frag, want, what)
+    n_blocks = stats["windows"] * len(cfg.strands)
+    print(f"# {what}: {frag['xStart'].shape[0]} fragments, equal to the "
+          f"single-shot output; wall {wall:.6f} s on {smi}; {stats['windows']} "
+          f"windows, hit totals {stats['hit_totals']}, seeds "
+          f"{stats['seed_counts']}, launches {counted}")
+    per = {k: round(stats[k], 6) for k in ("index", "seeds", "extend", "io",
+                                           "merge", "families") if k in stats}
+    print(f"#   stages (s) {per}; per window and strand: seeds "
+          f"{stats['seeds'] / n_blocks:.6f}, extend "
+          f"{stats['extend'] / n_blocks:.6f} s")
+    return wall, stats, counted
+
+
+def phase_streamed_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
+    """compare_streamed on the headline at window 2^20, both modes: in
+    memory, then with out_dir, then resumed after the manifest's last two
+    lines are dropped -> the in-memory runs' launch counts per mode."""
+    counted = {}
+    for mode in ("banded", "ungapped"):
+        cfg = HEADLINE_CFG.replace(extend_mode=mode)
+        what = f"streamed {mode} headline"
+        _, stats, counted[mode] = streamed_run(
+            codes, None, cfg, what, fused[mode], smi, window=HEADLINE_WINDOW)
+        check(stats["windows"] == 4, f"{what}: {stats['windows']} windows")
+        check(stats["hit_totals"] == HEADLINE_HITS
+              and stats["seed_counts"] == HEADLINE_SEEDS,
+              f"{what}: window sums {stats['hit_totals']} "
+              f"{stats['seed_counts']} != the single-shot totals")
+        check(counted[mode][mode] > 0, f"{what} launched {counted[mode]}")
+        with tempfile.TemporaryDirectory() as tmp:
+            streamed_run(codes, None, cfg, what + " with out_dir", fused[mode],
+                         smi, window=HEADLINE_WINDOW, out_dir=tmp)
+            manifest = Path(tmp) / "manifest.jsonl"
+            lines = manifest.read_text().splitlines()
+            manifest.write_text("\n".join(lines[:-2]) + "\n")
+            _, stats, c = streamed_run(
+                codes, None, cfg, what + " resumed (2 windows dropped)",
+                fused[mode], smi, window=HEADLINE_WINDOW, out_dir=tmp)
+            check(len(manifest.read_text().splitlines()) == len(lines) == 8,
+                  f"{what}: the manifest was not restored")
+            check(c[mode] > 0 and stats["hit_totals"][0] == 0,
+                  f"{what}: the resume recomputed {stats['hit_totals']}")
+    check(counted["ungapped"]["banded"] == 0,
+          "the streamed ungapped headline launched K1")
     return counted
+
+
+def phase_window_sets(codes: np.ndarray, smi: str) -> None:
+    """The kernels' launches inside the streamed headline's windows, each
+    window's seed set at 2^19 slots with a device n_live far below: K2's
+    32 launches (4 windows x 2 strands x anchors and survivors x 2
+    directions) all held against the plain version and timed; K1's 32 all
+    timed, and window 0 strand f's four (phase 1 and the compacted
+    full-depth re-run of its survivors, both directions) held against
+    the plain version, which takes seconds a set."""
+    for mode, name, compare in (("ungapped", "ungapped_xdrop", compare_k2),
+                                ("banded", "banded_gotoh", compare_k1)):
+        cfg = HEADLINE_CFG.replace(extend_mode=mode)
+        kernel, recorded = record_launches(name, lambda: compare_streamed(
+            codes, None, cfg, window=HEADLINE_WINDOW, device="cuda"))
+        check(len(recorded) == 32, f"{len(recorded)} {name} launches in the "
+              "streamed headline, expected 32")
+        held = recorded if mode == "ungapped" else recorded[:4]
+        for args in held:
+            check(torch.is_tensor(args[-1]) and args[-1].is_cuda,
+                  f"the streamed driver passed {name} a host n_live")
+            compare(args[:5], args[5:-1], args[-1])
+        kinds = {}
+        for i, args in enumerate(recorded):
+            ms = time_device(lambda: kernel(*args))
+            if mode == "ungapped":
+                kind = ("anchors", "survivors")[i // 2 % 2]
+            else:
+                kind = "phase 1" if args[10] == PHASE1_ROWS else "full depth"
+            kinds.setdefault(kind, []).append((int(args[-1]), ms))
+        for kind, sets in kinds.items():
+            live = [n for n, _ in sets]
+            ms = sorted(t for _, t in sets)
+            print(f"# {name} on the streamed headline's window sets, {kind}: "
+                  f"{len(sets)} launches, live seeds {min(live)}-{max(live)} of "
+                  f"{recorded[0][0].shape[0]}; device time min {ms[0]:.6f}, "
+                  f"median {statistics.median(ms):.6f}, max {ms[-1]:.6f}, "
+                  f"sum {sum(ms):.6f} ms on {smi}")
+        print(f"# {name} == plain on {len(held)} window sets (exact)")
+
+
+def phase_streamed_pair(a: np.ndarray, b: np.ndarray, single: dict,
+                        smi: str) -> dict:
+    """compare_streamed on config #3 with run_config3.py's streamed Config,
+    both modes, against phase 7's single-shot outputs -> launch counts."""
+    counted = {}
+    for mode in ("banded", "ungapped"):
+        cfg = PAIR_STREAMED_CFG.replace(extend_mode=mode)
+        what = f"streamed config #3 {mode}"
+        wall, stats, counted[mode] = streamed_run(a, b, cfg, what, single[mode],
+                                                  smi)
+        check(single[mode]["xStart"].shape[0] == PAIR_FRAGS[mode],
+              f"{what}: fragments")
+        check(stats["windows"] == 5 and stats["hit_totals"] == PAIR_HITS
+              and stats["seed_counts"] == PAIR_SEEDS,
+              f"{what}: {stats['windows']} windows, sums {stats['hit_totals']} "
+              f"{stats['seed_counts']}")
+        check(counted[mode][mode] > 0, f"{what} launched {counted[mode]}")
+        device_part = wall - stats["families"]
+        print(f"#   {what}: device part {device_part:.6f} s (wall less host "
+              f"clustering; final merge {stats['merge']:.6f} s over "
+              f"{stats['windows'] * 2 * cfg.seed_cap} rows)")
+    check(counted["ungapped"]["banded"] == 0,
+          "streamed config #3 ungapped launched K1")
+    return counted
+
+
+def phase_stage_timing():
+    """``--stage-timing`` through the CLI in its own process on the card:
+    its JSONL records carry the reference's stages and count fields."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repkiller_tpu_torch.cli", "run",
+             str(GOLDEN / "golden30k.fasta"), "-o", os.path.join(tmp, "g"),
+             "--device", "cuda", "--stage-timing", *GOLDEN_FLAGS], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"--stage-timing failed: {proc.stderr[-2000:]}")
+    records = [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    got = {r["stage"]: sorted(r) for r in records[:-1]}
+    want = {st: sorted(["stage", "wall_s"] + f) for st, f in STAGE_RECORDS.items()}
+    check(got == want and records[-1]["stage"] == "run",
+          f"--stage-timing records {records}")
+    for r in records[:-1]:
+        print(f"# --stage-timing on golden30k: {json.dumps(r)}")
 
 
 def main() -> int:
@@ -707,13 +950,13 @@ def main() -> int:
 
     g = synth.plant(HEADLINE_SIZE, HEADLINE_FAMS, seed=1234)
     cx = torch.from_numpy(g.codes.copy()).to(dev)
-    k1_counted = phase_headline(g.codes, cx, HEADLINE_CFG, smi)
+    k1_counted, fused_banded = phase_headline(g.codes, cx, HEADLINE_CFG, smi)
     check(k1_counted["banded"] > 0, "the banded headline did not launch K1")
     phase_profile(cx, HEADLINE_CFG, smi)
     err1b, k1_ms, k1_plain_ms, k1_bound, k1_by = phase_k1_headline_sets(
         cx, smi, rate)
 
-    k2_counted = phase_headline(g.codes, cx, UNGAPPED_CFG, smi)
+    k2_counted, fused_ungapped = phase_headline(g.codes, cx, UNGAPPED_CFG, smi)
     check(k2_counted["ungapped"] > 0 and k2_counted["banded"] == 0,
           f"the ungapped headline launched {k2_counted}: K2 > 0 and K1 == 0 "
           "expected")
@@ -723,9 +966,16 @@ def main() -> int:
     del cx
     torch.cuda.empty_cache()
 
-    pair_counted = phase_pairwise(smi)
+    pair_counted, pair_frags = phase_pairwise(smi)
     check(pair_counted["ungapped"]["banded"] == 0,
           "config #3 ungapped launched K1")
+
+    phase_staged(g.codes, fused_banded, smi)
+    phase_streamed_headline(
+        g.codes, {"banded": fused_banded, "ungapped": fused_ungapped}, smi)
+    phase_window_sets(g.codes, smi)
+    phase_streamed_pair(*make_strain_pair(PAIR_SIZE, PAIR_SEED), pair_frags, smi)
+    phase_stage_timing()
     print(f"# chip_smoke phases took {time.perf_counter() - t_start:.3f} s")
 
     print(json.dumps({"kernels": [

@@ -117,16 +117,19 @@ def compare(x: SeqLike, y: Optional[SeqLike] = None, cfg: Config = DEFAULT,
     backend "device" runs the torch pipeline on ``device`` (default
     "cuda": without a GPU this raises, it never drops to the CPU; pass
     ``device="cpu"`` to run there). backend "oracle" runs the numpy
-    reference. Both give the same output."""
-    if keep_intermediates:
-        raise NotImplementedError(
-            "keep_intermediates (staged execution with resume) is not "
-            "ported yet: ROADMAP.md section 1 item 11")
+    reference. Both give the same output. keep_intermediates (a
+    directory; device backend only) runs the pipeline stage by stage,
+    dumps each stage's arrays there, and lets a rerun with identical
+    inputs resume from the last completed stage."""
     xs = _as_seqset(x)
     ys = _as_seqset(y) if y is not None else None
+    if keep_intermediates and backend != "device":
+        raise ValueError("--keep-intermediates requires the device backend "
+                         "(streamed runs checkpoint per window instead)")
     codes_y = None if ys is None else ys.codes
     if backend == "device":
-        frag = _device.compare(xs.codes, codes_y, cfg, device)
+        frag = _device.compare(xs.codes, codes_y, cfg, device,
+                               keep_intermediates=keep_intermediates)
     elif backend == "oracle":
         frag = orc.compare(xs.codes, codes_y, cfg)
     else:

@@ -10,9 +10,11 @@ on the CPU):
   group  fragments CSV -> family-annotated CSV, summary and intervals
 
 Flags map 1:1 onto Config fields. ``--profile DIR`` writes a
-torch.profiler trace to DIR/trace.json. There is one process, so the
-outputs are written directly. Flags of paths that are not ported yet exit
-with the ROADMAP item that brings them.
+torch.profiler trace to DIR/trace.json; ``--keep-intermediates DIR``
+dumps each stage's arrays and resumes from them; ``--stage-timing`` also
+prints per-stage JSONL timings. There is one process, so the outputs are
+written directly. Flags of paths that are not ported yet exit with the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from . import api
 from .config import Config
 from .report import csv_writer, intervals as report_iv
 from .utils.capacity import grow_capacity
+from .utils.metrics import profile_stages
 
 log = logging.getLogger("repkiller_tpu")
 
@@ -86,13 +89,16 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--metrics-json", default=None,
                     help="append a JSONL metrics record here")
     pr.add_argument("--keep-intermediates", default=None, metavar="DIR",
-                    help="not ported yet (staged execution with resume)")
+                    help="dump each stage's arrays to DIR; a rerun with "
+                         "identical inputs resumes from the last completed "
+                         "stage (device backend)")
     pr.add_argument("--auto-capacity", type=int, default=0, metavar="N",
                     help="on capacity overflow, double the offending "
                          "capacity and retry, up to N times. 0 = fail fast "
                          "with the measured counts")
     pr.add_argument("--stage-timing", action="store_true",
-                    help="not ported yet (per-stage JSONL timings)")
+                    help="also run the pipeline stage-by-stage and print "
+                         "per-stage JSONL timings (forward strand)")
     # multi-process flags of the reference, kept so that they exit naming
     # the item that ports them
     pr.add_argument("--num-processes", type=int, default=1,
@@ -124,8 +130,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (args.num_processes > 1, "--num-processes > 1", 14),
         (args.platform is not None, "--platform", 14),
         (args.host_devices is not None, "--host-devices", 14),
-        (args.keep_intermediates is not None, "--keep-intermediates", 11),
-        (args.stage_timing, "--stage-timing", 15),
     ]
     for given, flag, item in unported:
         if given:
@@ -159,7 +163,9 @@ def cmd_run(args: argparse.Namespace) -> int:
         for attempt in range(args.auto_capacity + 1):
             try:
                 res = api.compare(src_x, args.fasta_y, cfg,
-                                  backend=args.backend, device=args.device)
+                                  backend=args.backend,
+                                  keep_intermediates=args.keep_intermediates,
+                                  device=args.device)
                 break
             except ValueError as e:
                 grown = grow_capacity(cfg, str(e))
@@ -177,6 +183,10 @@ def cmd_run(args: argparse.Namespace) -> int:
     if args.mask:
         with open(prefix + ".masked.fasta", "w") as f:
             f.write(res.masked_fasta())
+
+    if args.stage_timing:
+        profile_stages(res.x.codes, None if res.self_cmp else res.y.codes,
+                       cfg, emit=print, device=args.device)
 
     bp = res.x.total_length + (0 if res.self_cmp else res.y.total_length)
     metrics = {

@@ -8,6 +8,10 @@ of X with that of Y (strand f) or of revcomp(Y) (strand r).
 Arrays are sized by the Config's capacities with validity masks; the true
 counts come back so that overflow raises instead of truncating. Output is
 the reference's, field for field.
+
+compare_staged runs the same stage functions one stage at a time, each
+ended by a device synchronisation, and can dump each stage's arrays and
+resume from them (utils/checkpoint.StageStore, ``keep_intermediates``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .oracle import pipeline as orc
 from .seeds.filter import filter_hits
 from .seeds.join import join_hits
 from .seeds.self_join import join_self_canonical
+from .utils.checkpoint import StageStore, fingerprint
 
 
 def revcomp_device(codes: torch.Tensor) -> torch.Tensor:
@@ -43,12 +48,27 @@ def self_seeds_fn(cx: torch.Tensor, cfg: Config):
                                          cfg.hit_capacity, y_len=cx.shape[0])
     out = {}
     if "f" in cfg.strands:
-        out[0] = filter_hits(*hits_f[:3], cfg.min_hit_dist,
-                             out_capacity=cfg.seed_cap) + (hits_f[3],)
+        out[0] = thin_hits(*hits_f[:3], cfg) + (hits_f[3],)
     if "r" in cfg.strands:
-        out[1] = filter_hits(*hits_r[:3], cfg.min_hit_dist,
-                             out_capacity=cfg.seed_cap) + (hits_r[3],)
+        out[1] = thin_hits(*hits_r[:3], cfg) + (hits_r[3],)
     return out
+
+
+def pair_join(idx_x, idx_y, y_len: int, cfg: Config,
+              self_mode: Optional[str] = None, occ_idx=None):
+    """Seed hits of X's sorted index against that of Y (or of revcomp(Y))
+    -> (hpx, hpy, hvalid, total_hits); ``self_mode`` and ``occ_idx`` as in
+    seeds.join.join_hits."""
+    return join_hits(*idx_x, *idx_y, k=cfg.k, max_occ=cfg.max_occ,
+                     capacity=cfg.hit_capacity, self_mode=self_mode,
+                     y_len=y_len, occ_idx=occ_idx)
+
+
+def thin_hits(hpx, hpy, hvalid, cfg: Config):
+    """Diagonal thinning at the Config's seed capacity -> (spx, spy,
+    svalid, n_seeds)."""
+    return filter_hits(hpx, hpy, hvalid, cfg.min_hit_dist,
+                       out_capacity=cfg.seed_cap)
 
 
 def pair_seeds_fn(idx_x, cy_cmp: torch.Tensor, cfg: Config):
@@ -56,13 +76,49 @@ def pair_seeds_fn(idx_x, cy_cmp: torch.Tensor, cfg: Config):
     that of ``cy_cmp`` (Y, or revcomp(Y) for strand r), then thinned ->
     (spx, spy, svalid, n_seeds, total_hits). The seeding half of the
     reference's ``_one_strand``."""
-    kx, pxi, nxv = idx_x
-    ky, pyi, nyv = build_index(cy_cmp, cfg.k)
-    hpx, hpy, hvalid, total = join_hits(
-        kx, pxi, nxv, ky, pyi, nyv, k=cfg.k, max_occ=cfg.max_occ,
-        capacity=cfg.hit_capacity, y_len=cy_cmp.shape[0])
-    return filter_hits(hpx, hpy, hvalid, cfg.min_hit_dist,
-                       out_capacity=cfg.seed_cap) + (total,)
+    hpx, hpy, hvalid, total = pair_join(idx_x, build_index(cy_cmp, cfg.k),
+                                        cy_cmp.shape[0], cfg)
+    return thin_hits(hpx, hpy, hvalid, cfg) + (total,)
+
+
+def extend_strand(spx, spy, svalid, n_seeds, cx: torch.Tensor,
+                  cy_cmp: torch.Tensor, cfg: Config, strand: int):
+    """Gated extension of one strand's seeds against ``cy_cmp`` (Y, or
+    revcomp(Y) for strand r) -> (frag dict with its "strand" column,
+    valid mask)."""
+    frag, fv = extend_gated(spx, spy, svalid, cx, cy_cmp, cfg, n_live=n_seeds)
+    frag["strand"] = torch.where(fv, strand, 0).to(torch.int32)
+    return frag, fv
+
+
+def merge_strands(frags, valids, y_len: int, cfg: Config):
+    """Merge/accept over the strands' fragment blocks -> (out, valid_out,
+    n_frags)."""
+    frag = {f: torch.cat([fr[f] for fr in frags]) for f in frags[0]}
+    return merge_accept(frag, torch.cat(valids), cfg.min_len,
+                        cfg.min_identity, y_len=y_len)
+
+
+class StageTimer:
+    """Wall seconds per stage into ``timings`` (None: not kept), each stage
+    ended by a synchronisation of ``dev`` when it is a GPU."""
+
+    def __init__(self, timings: Optional[dict], dev: torch.device):
+        self.timings = timings
+        self.dev = dev
+        self.t = time.perf_counter()
+
+    def start(self) -> None:
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.timings is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        t1 = time.perf_counter()
+        self.timings[name] = self.timings.get(name, 0.0) + t1 - self.t
+        self.t = t1
 
 
 def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
@@ -71,16 +127,7 @@ def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
     their device -> (frag, n_frags, total_hits, n_seeds), all tensors.
     ``timings`` (optional dict) gathers wall seconds per stage ("seeds",
     "extend", "merge"), each ended by a device synchronisation."""
-    def lap(name, t0):
-        if timings is None:
-            return t0
-        if cx.is_cuda:
-            torch.cuda.synchronize(cx.device)
-        t1 = time.perf_counter()
-        timings[name] = timings.get(name, 0.0) + t1 - t0
-        return t1
-
-    t = time.perf_counter()
+    stages = StageTimer(timings, cx.device)
     self_cmp = cy is None
     cy = cx if self_cmp else cy
     ys = {strand: cy if strand == 0 else revcomp_device(cy)
@@ -90,21 +137,117 @@ def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
     else:
         idx_x = build_index(cx, cfg.k)
         seeds = {strand: pair_seeds_fn(idx_x, y, cfg) for strand, y in ys.items()}
-    t = lap("seeds", t)
-    frags, valids, totals, nseeds = [], [], [], []
-    for strand, (spx, spy, sv, n_seeds, total) in seeds.items():
-        frag, fv = extend_gated(spx, spy, sv, cx, ys[strand], cfg,
-                                n_live=n_seeds)
-        frag["strand"] = torch.where(fv, strand, 0).to(torch.int32)
+    stages.lap("seeds")
+    frags, valids = [], []
+    for strand, (spx, spy, sv, n_seeds, _) in seeds.items():
+        frag, fv = extend_strand(spx, spy, sv, n_seeds, cx, ys[strand], cfg,
+                                 strand)
         frags.append(frag)
         valids.append(fv)
-        totals.append(total)
-        nseeds.append(n_seeds)
-    t = lap("extend", t)
-    frag = {f: torch.cat([fr[f] for fr in frags]) for f in frags[0]}
-    out, _, n_frags = merge_accept(frag, torch.cat(valids), cfg.min_len,
-                                   cfg.min_identity, y_len=cy.shape[0])
-    lap("merge", t)
+    stages.lap("extend")
+    out, _, n_frags = merge_strands(frags, valids, cy.shape[0], cfg)
+    stages.lap("merge")
+    return (out, n_frags, torch.stack([s[4] for s in seeds.values()]),
+            torch.stack([s[3] for s in seeds.values()]))
+
+
+def compare_staged(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
+                   timings: Optional[dict] = None, store=None):
+    """Stage-by-stage equivalent of compare_fn (the reference's
+    ``compare_staged``): the same stage functions and the same output, one
+    stage at a time, each ended by a device synchronisation. ``timings``
+    (optional dict) gathers wall seconds under the reference's stage
+    names: self "seeds" (both strands from one canonical index), "extend"
+    (per strand, strand r's revcomp included) and "merge"; pairwise
+    "revcomp", "index_x", "index_y", "join", "filter", "extend" (per
+    strand) and "merge". ``store`` (optional utils.checkpoint.StageStore)
+    dumps each strand's seeds ("seeds{strand}") and extension
+    ("extend{strand}") and reloads them on a rerun with the same
+    fingerprint, so a stage that is reloaded is not timed."""
+    dev = cx.device
+    stages = StageTimer(timings, dev)
+    self_cmp = cy is None
+    cy_f = cx if self_cmp else cy
+    strands = [s for s in (0, 1) if "fr"[s] in cfg.strands]
+
+    def load(name):
+        z = store.load(name) if store is not None else None
+        return None if z is None else {f: torch.from_numpy(v).to(dev)
+                                       for f, v in z.items()}
+
+    def load_seeds(strand):
+        z = load(f"seeds{strand}")
+        return None if z is None else tuple(
+            z[f] for f in ("spx", "spy", "sv", "n_seeds", "total"))
+
+    def save_seeds(strand, t5):
+        if store is not None:
+            store.save(f"seeds{strand}", dict(zip(
+                ("spx", "spy", "sv", "n_seeds", "total"),
+                (t.cpu().numpy() for t in t5))))
+
+    def load_extend(strand):
+        z = load(f"extend{strand}")
+        return None if z is None else (z, z.pop("fvalid"))
+
+    def extend(strand, t5, cy_cmp, rev_y=False):
+        stages.start()
+        if rev_y:                 # strand r's revcomp, timed with its extension
+            cy_cmp = revcomp_device(cy_cmp)
+        frag, fv = extend_strand(*t5[:4], cx, cy_cmp, cfg, strand)
+        stages.lap("extend")
+        if store is not None:
+            store.save(f"extend{strand}", {
+                **{f: v.cpu().numpy() for f, v in frag.items()},
+                "fvalid": fv.cpu().numpy()})
+        return frag, fv
+
+    frags, valids, totals, nseeds = [], [], [], []
+    if self_cmp:
+        seeds = {s: load_seeds(s) for s in strands}
+        if any(v is None for v in seeds.values()):
+            stages.start()
+            seeds = self_seeds_fn(cx, cfg)
+            stages.lap("seeds")
+            for s, t5 in seeds.items():
+                save_seeds(s, t5)
+        for strand, t5 in seeds.items():
+            ext = load_extend(strand)
+            if ext is None:
+                ext = extend(strand, t5, cx, rev_y=strand == 1)
+            frags.append(ext[0]), valids.append(ext[1])
+            totals.append(t5[4]), nseeds.append(t5[3])
+    else:
+        idx_x = None
+        for strand in strands:
+            t5, ext = load_seeds(strand), load_extend(strand)
+            if t5 is None or ext is None:
+                cy_cmp = cy_f
+                if strand == 1:
+                    stages.start()
+                    cy_cmp = revcomp_device(cy_f)
+                    stages.lap("revcomp")
+            if t5 is None:
+                if idx_x is None:
+                    stages.start()
+                    idx_x = build_index(cx, cfg.k)
+                    stages.lap("index_x")
+                stages.start()
+                idx_y = build_index(cy_cmp, cfg.k)
+                stages.lap("index_y")
+                hpx, hpy, hv, total = pair_join(idx_x, idx_y,
+                                                cy_cmp.shape[0], cfg)
+                stages.lap("join")
+                t5 = thin_hits(hpx, hpy, hv, cfg) + (total,)
+                stages.lap("filter")
+                save_seeds(strand, t5)
+            if ext is None:
+                ext = extend(strand, t5, cy_cmp)
+            frags.append(ext[0]), valids.append(ext[1])
+            totals.append(t5[4]), nseeds.append(t5[3])
+    stages.start()
+    out, _, n_frags = merge_strands(frags, valids, cy_f.shape[0], cfg)
+    stages.lap("merge")
     return out, n_frags, torch.stack(totals), torch.stack(nseeds)
 
 
@@ -119,13 +262,22 @@ def check_device(device) -> torch.device:
 
 
 def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
-            device, timings: Optional[dict] = None) -> Dict[str, np.ndarray]:
+            device, timings: Optional[dict] = None,
+            keep_intermediates: Optional[str] = None) -> Dict[str, np.ndarray]:
     """Comparison of ``codesX`` against ``codesY`` (``None``: against
     itself) on ``device`` -> the canonical fragment dict (original
     coordinates, numpy, compacted to the true count) with the
     host-computed "group" family column. Raises on hit, seed and fragment
-    capacity overflow. ``timings`` as in compare_fn, plus "families" for
-    the host clustering."""
+    capacity overflow. ``timings`` gathers the stage walls of
+    compare_fn, or of compare_staged with keep_intermediates, plus
+    "families" for the host clustering.
+
+    keep_intermediates (a directory) runs compare_staged, one stage at a
+    time with the same output, dumps each stage's arrays there, and a
+    rerun with identical inputs resumes from the last completed stage.
+    Without it the fused compare_fn runs. The reference also takes
+    ``staged``, its default, because its fused program compiles slowly on
+    a TPU; torch compiles nothing, so the port has no such option."""
     dev = check_device(device)
     self_cmp = codesY is None
     codes_x = np.asarray(codesX, np.uint8)
@@ -136,7 +288,12 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
         return frag
     cx = torch.from_numpy(codes_x.copy()).to(dev)
     cy = None if self_cmp else torch.from_numpy(codes_y.copy()).to(dev)
-    out, n_frags, total_hits, n_seeds = compare_fn(cx, cy, cfg, timings)
+    if keep_intermediates:
+        store = StageStore(keep_intermediates, fingerprint(codesX, codesY, cfg))
+        out, n_frags, total_hits, n_seeds = compare_staged(
+            cx, cy, cfg, timings, store)
+    else:
+        out, n_frags, total_hits, n_seeds = compare_fn(cx, cy, cfg, timings)
 
     total_hits = total_hits.cpu().numpy()
     if (total_hits > cfg.hit_capacity).any():

@@ -93,12 +93,13 @@ def join_hits(kx, px, nx_valid, ky, py, ny_valid, k: int, max_occ: int,
     the caller detects overflow. Hits come in the reference's order:
     X-index order, then Y-run order.
 
-    Only the pairwise join is ported: ``self_mode``, ``same_index`` and
-    ``occ_idx`` serve the streamed driver, ``shard`` the sharded path."""
-    if self_mode is not None or same_index or occ_idx is not None:
-        raise NotImplementedError(
-            "join_hits: self_mode, same_index and occ_idx belong to the "
-            "streamed driver, ROADMAP.md section 1 item 13")
+    self_mode "f": keep px < py (the canonical half of a self-comparison;
+    kx may be a window of the genome Y was built from). self_mode "r":
+    keep py <= y_len - px - k (X against revcomp(X)). occ_idx (k_full,
+    n_full_valid): count X-side occurrences against this full index
+    (needed when kx is a window). same_index: kx/px ARE ky/py, so the run
+    bounds come from scans, not a search, and the "f" bound is xi + 1.
+    ``shard`` belongs to the sharded path, which is not ported."""
     if shard is not None:
         raise NotImplementedError(
             "join_hits: shard belongs to the sharded path, ROADMAP.md "
@@ -106,14 +107,44 @@ def join_hits(kx, px, nx_valid, ky, py, ny_valid, k: int, max_occ: int,
     nx = kx.shape[0]
     dev = kx.device
     xi = torch.arange(nx, dtype=torch.int32, device=dev)
-    lo, hi = ranks_by_sort(ky, py, ny_valid, [kx, kx],
-                           [torch.full((nx,), -1, dtype=torch.int32, device=dev),
-                            torch.full((nx,), MAXP, dtype=torch.int32, device=dev)])
+    below = torch.full((nx,), -1, dtype=torch.int32, device=dev)
+    above = torch.full((nx,), MAXP, dtype=torch.int32, device=dev)
+    pair_rank = None
+    if same_index:
+        lo, hi = _run_bounds(kx)
+        lo = torch.minimum(lo, ny_valid)
+        hi = torch.minimum(hi, ny_valid)
+    else:
+        kqs, pqs = [kx, kx], [below, above]
+        if self_mode == "f":
+            kqs.append(kx), pqs.append(px)
+        elif self_mode == "r":
+            kqs.append(kx), pqs.append(y_len - px - k)  # keep py <= anchor
+        ranks = ranks_by_sort(ky, py, ny_valid, kqs, pqs)
+        lo, hi = ranks[0], ranks[1]
+        if self_mode is not None:
+            pair_rank = ranks[2]
     occ_y = hi - lo
-    # occurrences of each X k-mer in X itself: run scans, never a search
-    xlo, xhi = _run_bounds(kx)
-    occ_x = torch.minimum(xhi, nx_valid) - torch.minimum(xlo, nx_valid)
+    if same_index:
+        occ_x = occ_y
+    elif occ_idx is not None:
+        ko, no_valid = occ_idx
+        xr = ranks_by_sort(ko, torch.zeros_like(ko, dtype=torch.int32),
+                           no_valid, [kx, kx], [below, above])
+        occ_x = xr[1] - xr[0]
+    else:
+        # occurrences of each X k-mer in X itself: run scans, never a search
+        xlo, xhi = _run_bounds(kx)
+        occ_x = torch.minimum(xhi, nx_valid) - torch.minimum(xlo, nx_valid)
     keep = (xi < nx_valid) & (occ_x <= max_occ) & (occ_y <= max_occ)
+
+    # the exact canonical-half bounds of a self-comparison
+    if self_mode == "f" and same_index:
+        lo = torch.maximum(lo, xi + 1)  # entry xi is inside its own run
+    elif self_mode == "f":
+        lo = torch.maximum(lo, pair_rank)
+    elif self_mode == "r":
+        hi = torch.maximum(torch.minimum(hi, pair_rank), lo)
     counts = torch.where(keep, (hi - lo).clamp(min=0), 0)
 
     csum = torch.cumsum(counts, 0, dtype=torch.int32)          # inclusive

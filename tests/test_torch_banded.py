@@ -20,6 +20,7 @@ from repkiller_tpu_torch.extend import _cuda
 from repkiller_tpu_torch.extend.banded import direction_plain
 from repkiller_tpu_torch.extend.banded_kernel import (
     _direction, extend_banded, extend_banded_gated)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SCORES = dict(match=4, mismatch=-4, gap_open=8, gap_extend=2)
 

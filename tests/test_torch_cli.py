@@ -3,9 +3,11 @@ the JAX package's: on the same FASTA files, ``run`` with ``--device cpu``
 writes the fragments CSV, family summary, BED and masked FASTA byte for
 byte as ``repkiller_tpu.cli run --backend oracle`` does (the oracle gives
 the device backend's bytes, more cheaply), self and pairwise; the
-``group`` round trip; ``--auto-capacity``; ``--profile``; and the flags of
-paths not ported yet."""
+``group`` round trip; ``--auto-capacity``; ``--profile``;
+``--keep-intermediates`` (the reference's stage files, and a resume from
+them); ``--stage-timing``; and the flags of paths not ported yet."""
 
+import glob
 import json
 import os
 
@@ -16,6 +18,7 @@ from repkiller_tpu import cli as jcli
 from repkiller_tpu.io import codec
 from repkiller_tpu.utils import synth
 from repkiller_tpu_torch import cli as tcli
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 OUTPUTS = (".frags.csv", ".families.csv", ".repeats.bed", ".masked.fasta")
 FLAGS = ["--strands", "fr", "--hit-capacity", str(1 << 14), "--max-extend",
@@ -113,15 +116,79 @@ def test_profile_writes_a_trace(fastas, tmp_path, capsys):
     (["--num-processes", "2", "--process-id", "0"], "item 14"),
     (["--platform", "cpu"], "item 14"),
     (["--host-devices", "4"], "item 14"),
-    (["--keep-intermediates", "KEEP"], "item 11"),
-    (["--stage-timing"], "item 15"),
 ])
 def test_unported_flags_exit(fastas, tmp_path, flags, item):
-    flags = [str(tmp_path / "k") if f == "KEEP" else f for f in flags]
     with pytest.raises(SystemExit, match=item):
         tcli.main(["run", fastas["x"], "-o", str(tmp_path / "o"), "--device",
                    "cpu", *flags])
     assert not os.path.exists(str(tmp_path / "o.frags.csv"))
+
+
+def _stage_arrays(d):
+    """{file name: {key: array}} of a --keep-intermediates directory."""
+    out = {}
+    for p in sorted(glob.glob(os.path.join(d, "stage_*.npz"))):
+        with np.load(p) as z:
+            out[os.path.basename(p)] = {f: z[f] for f in z.files}
+    return out
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["self", "pair"])
+def test_keep_intermediates_matches_reference_cli(fastas, tmp_path, capsys,
+                                                  pair):
+    """The port and ``repkiller_tpu.cli`` with --keep-intermediates write
+    the same outputs and the same stage files (names, keys, dtypes,
+    arrays); the port then resumes from the reference's directory without
+    writing to it, and gives the same bytes again."""
+    inputs = [fastas["x"]] + ([fastas["y"]] if pair else [])
+    ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
+    keep_ours, keep_ref = str(tmp_path / "k_ours"), str(tmp_path / "k_ref")
+    assert tcli.main(["run", *inputs, "-o", ours, "--device", "cpu",
+                      "--keep-intermediates", keep_ours, *FLAGS]) == 0
+    assert jcli.main(["run", *inputs, "-o", ref, "--keep-intermediates",
+                      keep_ref, *FLAGS]) == 0
+    capsys.readouterr()
+    got, want = _stage_arrays(keep_ours), _stage_arrays(keep_ref)
+    assert list(got) == list(want) and len(got) == 4
+    for name in want:
+        assert got[name].keys() == want[name].keys(), name
+        for f, a in want[name].items():
+            assert got[name][f].dtype == a.dtype and np.array_equal(
+                got[name][f], a), (name, f)
+    stamps = {p: os.stat(p).st_mtime_ns
+              for p in glob.glob(os.path.join(keep_ref, "*"))}
+    again = str(tmp_path / "again")
+    assert tcli.main(["run", *inputs, "-o", again, "--device", "cpu",
+                      "--keep-intermediates", keep_ref, *FLAGS]) == 0
+    assert {p: os.stat(p).st_mtime_ns
+            for p in glob.glob(os.path.join(keep_ref, "*"))} == stamps
+    for suffix in OUTPUTS:
+        with open(ref + suffix, "rb") as b:
+            want_bytes = b.read()
+        for prefix in (ours, again):
+            with open(prefix + suffix, "rb") as a:
+                assert a.read() == want_bytes, (prefix, suffix)
+
+
+def test_stage_timing_prints_records(fastas, tmp_path, capsys):
+    """--stage-timing prints the reference's per-stage JSONL records (all
+    but ``wall_s`` equal), then the run's metrics line."""
+    flags = ["--stage-timing", *FLAGS]
+    assert tcli.main(["run", fastas["x"], "-o", str(tmp_path / "ours"),
+                      "--device", "cpu", *flags]) == 0
+    got = [json.loads(line) for line in
+           capsys.readouterr().out.strip().splitlines()]
+    assert jcli.main(["run", fastas["x"], "-o", str(tmp_path / "ref"),
+                      "--backend", "oracle", *flags]) == 0
+    want = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert [r["stage"] for r in got] == [
+        "h2d", "index_build", "seed_join", "hit_filter", "extension",
+        "merge_accept", "families_host", "run"]
+    for g, w in zip(got[:-1], want[:-1], strict=True):
+        g.pop("wall_s"), w.pop("wall_s")
+        assert g == w
+    assert got[2]["hits"] > 0 and got[-1]["fragments"] == want[-1]["fragments"]
 
 
 def test_default_device_is_cuda(fastas, tmp_path, monkeypatch):

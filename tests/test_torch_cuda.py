@@ -1,6 +1,7 @@
 """Tests of the torch port that need an NVIDIA GPU: kernels K1 and K2
 against their plain versions on the card, and the pipeline on the card
-(self and pairwise, banded and ungapped) against the CPU.
+(self and pairwise, banded and ungapped; fused, staged with resume,
+streamed, and per-stage timing) against the CPU.
 
 They skip where no GPU is visible; on a machine with one, run
     python -m pytest tests/test_torch_cuda.py -q
@@ -13,9 +14,11 @@ import torch
 
 from repkiller_tpu_torch import device as tdevice
 from repkiller_tpu_torch.config import Config
+from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, ungapped
 from repkiller_tpu_torch.extend.banded import direction_plain
 from repkiller_tpu_torch.utils import synth
+from repkiller_tpu_torch.utils.metrics import profile_stages
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +353,74 @@ def test_pairwise_pipeline_on_card_matches_cpu(gpu, mode):
     assert got["xStart"].shape[0] > 0 and (got["strand"] == 1).any()
     for f in want:
         assert np.array_equal(got[f], want[f]), f
+
+
+def _kernel(mode):
+    return _cuda.ungapped_xdrop if mode == "ungapped" else _cuda.banded_gotoh
+
+
+@pytest.mark.parametrize("mode", ["ungapped", "banded"])
+@pytest.mark.parametrize("pair", [False, True], ids=["self", "pair"])
+def test_streamed_on_card_matches_cpu(gpu, tmp_path, mode, pair):
+    """compare_streamed on the card launches its mode's kernel in every
+    window and equals the CPU; a resume from its out_dir launches none."""
+    g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=5)
+    y = None
+    if pair:
+        y = g.codes[2000:18000].copy()
+        y[::41] = (y[::41] + 1) % 4
+    cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 14,
+                 max_extend=512, gate_stride=256)
+    other = _cuda.banded_gotoh if mode == "ungapped" else _cuda.ungapped_xdrop
+    k, o = _kernel(mode).launches, other.launches
+    stats = {}
+    got = compare_streamed(g.codes, y, cfg, out_dir=str(tmp_path),
+                           window=4096, device=gpu, stats=stats)
+    assert _kernel(mode).launches - k >= 2 * stats["windows"] == 10
+    assert other.launches == o
+    want = compare_streamed(g.codes, y, cfg, window=4096, device="cpu")
+    assert got["xStart"].shape[0] > 0 and (got["strand"] == 1).any()
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f
+    k = _kernel(mode).launches
+    again = compare_streamed(g.codes, y, cfg, out_dir=str(tmp_path),
+                             window=4096, device=gpu)
+    assert _kernel(mode).launches == k
+    for f in want:
+        assert np.array_equal(again[f], want[f]), f
+
+
+@pytest.mark.parametrize("mode", ["ungapped", "banded"])
+@pytest.mark.parametrize("pair", [False, True], ids=["self", "pair"])
+def test_staged_on_card_matches_cpu(gpu, tmp_path, mode, pair):
+    """Staged with keep_intermediates on the card equals the CPU's fused
+    output; the resume runs no kernel and no heavy stage."""
+    g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=6)
+    y = g.codes[1000:15000].copy() if pair else None
+    cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 15,
+                 max_extend=512)
+    k = _kernel(mode).launches
+    got = tdevice.compare(g.codes, y, cfg, gpu,
+                          keep_intermediates=str(tmp_path))
+    assert _kernel(mode).launches > k
+    want = tdevice.compare(g.codes, y, cfg, "cpu")
+    assert got["xStart"].shape[0] > 0
+    k, timings = _kernel(mode).launches, {}
+    again = tdevice.compare(g.codes, y, cfg, gpu, timings=timings,
+                            keep_intermediates=str(tmp_path))
+    assert _kernel(mode).launches == k
+    assert "extend" not in timings and "seeds" not in timings \
+        and "join" not in timings, timings
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f
+        assert np.array_equal(again[f], want[f]), f
+
+
+def test_profile_stages_on_card_matches_cpu(gpu):
+    g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=7)
+    cfg = Config(k=12, strands="fr", hit_capacity=1 << 14)
+    got = profile_stages(g.codes, None, cfg, device=gpu)
+    want = profile_stages(g.codes, None, cfg, device="cpu")
+    for r in got + want:
+        assert r.pop("wall_s") >= 0
+    assert got == want and got[2]["hits"] > 0

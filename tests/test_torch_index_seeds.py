@@ -21,6 +21,7 @@ from repkiller_tpu_torch.index import build as tbuild
 from repkiller_tpu_torch.index import canonical as tcanon
 from repkiller_tpu_torch.seeds.filter import filter_hits as t_filter
 from repkiller_tpu_torch.seeds.self_join import join_self_canonical as t_join
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CASES = [(5000, 12, 11), (12000, 11, 12), (30000, 16, 13)]   # (L, k, seed)
 

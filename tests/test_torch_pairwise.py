@@ -40,6 +40,7 @@ sys.path.insert(0, str(ROOT / "benchmarks"))
 import run_config3  # noqa: E402  (benchmarks/ is not a package)
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 PAIR_SIZE = 20000
 CAP = 1 << 16
@@ -130,12 +131,8 @@ def test_join_hits(max_occ):
 
 def test_join_hits_unported_arguments_raise():
     t = tbuild.build_index(torch.from_numpy(_codes(5)), 12)
-    for kw, item in ((dict(self_mode="f"), "item 13"),
-                     (dict(same_index=True), "item 13"),
-                     (dict(occ_idx=(t[0], t[2])), "item 13"),
-                     (dict(shard=(0, 2)), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            tjoin.join_hits(*t, *t, k=12, max_occ=8, capacity=64, **kw)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tjoin.join_hits(*t, *t, k=12, max_occ=8, capacity=64, shard=(0, 2))
 
 
 @pytest.mark.parametrize("mode", ["ungapped", "banded"])

@@ -29,6 +29,7 @@ from repkiller_tpu_torch import api, cli as tcli, device as tdevice
 from repkiller_tpu_torch.chain.merge import merge_accept as t_merge
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.convert import to_numpy, to_torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
@@ -158,11 +159,13 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Staged execution with resume and the sharded backend are not
-    ported yet: each raises, naming its ROADMAP item."""
+    """keep_intermediates with a backend other than "device" raises the
+    reference's ValueError; the sharded backend is not ported yet and
+    exits naming its ROADMAP item."""
     codes = _genome(7, L=2000)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.compare(codes, None, CFG, "device", str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="requires the device backend"):
+        api.compare(codes, None, CFG, "oracle", str(tmp_path), device="cpu")
+    assert not os.listdir(tmp_path)
     fa = tmp_path / "g.fa"
     fa.write_text(">g\n" + codec.decode(codes) + "\n")
     with pytest.raises(SystemExit, match="item 14"):
@@ -177,6 +180,9 @@ sys.modules["repkiller_tpu"] = None  # and so does any of the JAX package
 sys.path.insert(0, {root!r})
 import repkiller_tpu_torch
 import repkiller_tpu_torch.cli
+import repkiller_tpu_torch.dist.windows
+import repkiller_tpu_torch.utils.checkpoint
+import repkiller_tpu_torch.utils.metrics
 import chip_smoke                  # imported, main() not run
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.io import codec
@@ -205,7 +211,8 @@ def test_port_never_imports_jax(tmp_path):
     code = NO_JAX.format(root=str(ROOT), tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
-                          env={**os.environ, "REPKILLER_DEVICE_CLUSTER": "1"})
+                          env={**os.environ, "REPKILLER_DEVICE_CLUSTER": "1",
+                               "OMP_NUM_THREADS": "1"})  # as _torch_threads
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count(" fragments ") == 4, proc.stdout
     assert '"stage": "run"' in proc.stdout, proc.stdout

@@ -10,6 +10,7 @@ import torch
 
 from repkiller_tpu.utils import scan as jscan
 from repkiller_tpu_torch.utils import scan as tscan
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("spread", ["ties", "wide"])

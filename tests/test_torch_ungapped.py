@@ -26,6 +26,7 @@ from repkiller_tpu_torch.extend import extend_dispatch
 from repkiller_tpu_torch.extend.ungapped import direction_plain
 from repkiller_tpu_torch.extend.ungapped_kernel import _direction, extend_ungapped
 from test_torch_cuda import ungapped_boundary_case
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _ref(cfg: Config) -> JConfig:
