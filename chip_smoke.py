@@ -46,14 +46,15 @@ Phases, each of which must pass (any failure exits non-zero):
      counts, hit totals and seeds against the JAX package's records, walls,
      stage split and peak memory;
   8. staged execution with resume on the banded headline: device.compare
-     with keep_intermediates equals the fused run field for field; the
-     rerun resumes from the stage files (no "seeds" or "extend" stage, no
-     K1 launch) with the same output; fused, staged and resumed walls;
+     with keep_intermediates equals the run without a store field for
+     field; the rerun resumes from the stage files (no "seeds" or "extend"
+     stage, no K1 launch) with the same output; walls without a store,
+     staged and resumed;
      then the device parts of compare_fn and of compare_staged without a
      store, in turns;
   9. the streamed driver (dist/windows.compare_streamed) on the headline at
-     window 2^20 (4 windows), banded and ungapped: equal to the fused
-     output, window hit totals and seeds summing to the single-shot ones;
+     window 2^20 (4 windows), banded and ungapped: equal to
+     device.compare's output, window hit totals and seeds summing to the single-shot ones;
      then with out_dir, and a resume after the manifest's last two lines
      are dropped; walls with and without out_dir, per-window seeds and
      extend times, and the final merge; then K2 == the plain version on all
@@ -64,13 +65,41 @@ Phases, each of which must pass (any failure exits non-zero):
      5 windows), banded and ungapped: equal to phase 7's single-shot
      output; wall, device part and final merge;
  11. ``--stage-timing`` through the CLI on golden30k: the reference's JSONL
-     records (stages and count fields).
+     records (stages and count fields);
+ 12. the sharded backend (dist/sharded.compare_sharded) on the headline,
+     banded and ungapped, on one-process meshes of shapes (1, 1), (1, 2),
+     (1, 4), (2, 1) and (2, 2) on the card: equal field for field to
+     device.compare's output; K1 and K2 launches per shape. With two
+     windows the headline's seed capacity of 2^19 is refused (the
+     reference grants seed_capacity // n_data seeds a window, and a
+     self-comparison's seeds crowd the first window, px < py): the
+     refusal is printed and the run repeated at seed capacity 2^20;
+ 13. config #2 (benchmarks/run_config2.py: 12.1 Mbp self, k=16, banded,
+     families) through device.compare: 5,735 fragments, 4,679 families, the
+     largest of 178 fragments;
+ 14. config #4 (benchmarks/run_config4.py: two 24 Mbp records joined by an
+     N, k=16, banded) through compare_sharded over make_mesh(), once on the
+     one-process mesh and twice inside a one-rank NCCL process group (a
+     process mesh, its collectives on the card; the first run also sets up
+     NCCL's communicators): each 85,400 fragments,
+     132,102 repeat intervals and 9,997,161 bp masked; wall, device part,
+     host clustering and peak memory; then K1 == the plain version on the
+     phase-1 set of window 0, strand f;
+ 15. config #5 at 0.25x (benchmarks/run_config5.py: 62 Mbp, k=16, banded,
+     hit capacity 2^21) through compare_sharded over make_mesh(): 140,486
+     fragments.
 
-Every main-path run (5, 6, both runs of 7, and those of 8-10) sets the
-kernels' launch counts to 0 just before it and reads them just after. A kernel's device
-time is taken with CUDA events around 20 launches that the host queues
-while a ``torch.cuda._sleep`` holds the stream, so it leaves out the host's
-pace. Informational lines come first; the last two lines are the kernels'
+Before the card is pinned, ``nvidia-smi -L`` gives the machine's GPU
+count, printed on an informational line. The counts of configs #2, #4 and
+#5 are the JAX package's (BASELINE.md, round-5 campaign); as there, each
+runs under utils/capacity.with_auto_capacity, and any grown capacity is
+printed.
+
+Every main-path run (5, 6, both runs of 7, those of 8-10 and 12-15) sets
+the kernels' launch counts to 0 just before it and reads them just after.
+A kernel's device time is taken with CUDA events around 20 launches that
+the host queues while a ``torch.cuda._sleep`` holds the stream, so it
+leaves out the host's pace. Informational lines come first; the last two lines are the kernels'
 JSON record and the device's JSON record. Imports nothing of JAX.
 """
 
@@ -91,9 +120,15 @@ import torch
 
 from repkiller_tpu_torch import api, device as tdevice
 from repkiller_tpu_torch.config import Config
+from repkiller_tpu_torch.dist.mesh import ProcessMesh, make_mesh
+from repkiller_tpu_torch.dist.sharded import compare_sharded
 from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, banded, ungapped
+from repkiller_tpu_torch.families import cluster_families
+from repkiller_tpu_torch.oracle import pipeline as orc
+from repkiller_tpu_torch.report import intervals as report_iv
 from repkiller_tpu_torch.utils import synth
+from repkiller_tpu_torch.utils.capacity import grow_capacity, with_auto_capacity
 from repkiller_tpu_torch.utils.scan import partition_live
 
 ROOT = Path(__file__).resolve().parent
@@ -134,6 +169,26 @@ PAIR_STREAMED_CFG = Config(k=12, strands="fr", extend_mode="banded",
                            hit_capacity=1 << 21, seed_capacity=1 << 19,
                            max_extend=2048, window=1 << 20)
 HEADLINE_WINDOW = 1 << 20
+SHARDED_SHAPES = [(1, 1), (1, 2), (1, 4), (2, 1), (2, 2)]
+# benchmarks/run_config2.py, run_config4.py and run_config5.py: genomes
+# (sizes, planted families, seeds) and Configs; expected counts from
+# BASELINE.md's round-5 campaign (the JAX package on a TPU)
+BIG_CFG = Config(k=16, strands="fr", extend_mode="banded", hit_capacity=1 << 20,
+                 seed_capacity=1 << 19, max_extend=2048)
+CONFIG2_SIZE, CONFIG2_SEED = 12_100_000, 4242
+CONFIG2_FAMS = [(5900, 4, 0.03, 1), (332, 12, 0.05, 3), (137, 20, 0.08, 0),
+                (1024, 6, 0.01, 2)]
+CONFIG2_WANT = {"fragments": 5735, "families": 4679, "largest family": 178}
+CONFIG4_SIZE, CONFIG4_SEEDS = 48_000_000, (21, 22)
+CONFIG4_FAMS = [(7000, 5, 0.05, 2), (4100, 4, 0.08, 1), (359, 30, 0.06, 5),
+                (1024, 8, 0.02, 2)]
+CONFIG4_WANT = {"fragments": 85400, "repeat intervals": 132102,
+                "masked bp": 9997161}
+CONFIG5_SIZE, CONFIG5_SEED = int(248_000_000 * 0.25), 1
+CONFIG5_FAMS = [(6000, 8, 0.10, 3), (300, 40, 0.12, 10), (1024, 10, 0.05, 3)]
+CONFIG5_CFG = Config(k=16, strands="fr", extend_mode="banded",
+                     hit_capacity=1 << 21, max_extend=2048)
+CONFIG5_FRAGS = 140486
 # utils/metrics.profile_stages' records: stage -> its count fields
 STAGE_RECORDS = {"h2d": ["bp"], "index_build": ["kmers"], "seed_join": ["hits"],
                  "hit_filter": ["seeds"], "extension": ["seeds", "cells"],
@@ -160,6 +215,20 @@ HBM_BYTES_PER_S = 3.35e12
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def machine_gpu_count():
+    """The machine's GPU count from ``nvidia-smi -L`` (NVML, which
+    CUDA_VISIBLE_DEVICES does not restrict; CUDA is not initialised), or
+    None where nvidia-smi does not run."""
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    if out.returncode:
+        return None
+    return sum(1 for line in out.stdout.splitlines() if line.startswith("GPU "))
 
 
 def pin_one_card() -> str:
@@ -467,9 +536,23 @@ def phase_headline(codes: np.ndarray, cx: torch.Tensor, cfg: Config, smi: str):
     for name in stages[0]:
         vals = [s[name] for s in stages]
         print(f"#   stage {name}: {[round(v, 6) for v in vals]} s")
+    print(f"#   host clustering of the output, timed apart: "
+          f"{host_clustering(frag, cfg, True):.6f} s")
     print(f"# {mode} headline peak device memory {peak:.3f} GiB; launches in "
           f"the counted run: {counted}; families {len(np.unique(frag['group']))}")
     return counted, frag
+
+
+def host_clustering(frag: dict, cfg: Config, self_cmp: bool) -> float:
+    """Seconds of the host family clustering of an output table, which
+    device.compare and compare_sharded run last; it must give the same
+    families."""
+    t0 = time.perf_counter()
+    group = cluster_families({f: v for f, v in frag.items() if f != "group"},
+                             cfg, self_cmp)
+    dt = time.perf_counter() - t0
+    check(np.array_equal(group, frag["group"]), "host clustering differs")
+    return dt
 
 
 def phase_profile(cx: torch.Tensor, cfg: Config, smi: str):
@@ -737,11 +820,11 @@ def check_same(got: dict, want: dict, what: str) -> None:
 def phase_staged(codes: np.ndarray, fused: dict, smi: str) -> dict:
     """The banded headline through device.compare with keep_intermediates:
     the staged run, then its resume from the stage files; both equal the
-    fused output -> the staged run's launch counts."""
+    run without a store -> the staged run's launch counts."""
     cfg = HEADLINE_CFG
     t0 = time.perf_counter()
     tdevice.compare(codes, None, cfg, "cuda")
-    fused_wall = time.perf_counter() - t0
+    plain_wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         walls, stages, counted = [], [], []
         for run in ("staged", "resumed"):
@@ -761,7 +844,8 @@ def phase_staged(codes: np.ndarray, fused: dict, smi: str) -> dict:
     check(counted[1]["banded"] == 0 and not {"seeds", "extend"} & set(stages[1]),
           f"the resume ran {stages[1]} and launched {counted[1]}")
     print(f"# staged banded headline: {frag['xStart'].shape[0]} fragments, "
-          f"equal to the fused run; walls: fused {fused_wall:.6f} s, staged "
+          f"equal to the run without a store; walls: without a store "
+          f"{plain_wall:.6f} s, staged "
           f"{walls[0]:.6f} s, resumed {walls[1]:.6f} s on {smi}")
     for run, timings, c in zip(("staged", "resumed"), stages, counted):
         print(f"#   {run} stages { {k: round(v, 6) for k, v in timings.items()} }"
@@ -930,7 +1014,167 @@ def phase_stage_timing():
         print(f"# --stage-timing on golden30k: {json.dumps(r)}")
 
 
+def phase_sharded_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
+    """compare_sharded on the headline at each mesh shape of SHARDED_SHAPES,
+    one-process meshes of bodies all on the card, both modes, against
+    device.compare's output -> {(mode, shape): launch counts}. A shape
+    that the capacity checks refuse at the headline's capacities is
+    printed with the reference's error and runs again with the capacity
+    that utils/capacity.grow_capacity doubles, launches counted anew."""
+    counted = {}
+    for mode in ("banded", "ungapped"):
+        cfg = HEADLINE_CFG.replace(extend_mode=mode)
+        for shape in SHARDED_SHAPES:
+            what = f"sharded {mode} headline on a {shape[0]}x{shape[1]} mesh"
+            mesh = make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+            used = cfg
+            for attempt in range(2):
+                reset_launches()
+                t0 = time.perf_counter()
+                try:
+                    frag = compare_sharded(codes, None, used, mesh)
+                    break
+                except ValueError as e:
+                    grown = grow_capacity(used, str(e))
+                    check(attempt == 0 and grown is not None,
+                          f"{what} refused again: {e}")
+                    print(f"# {what}: refused at the headline's capacities "
+                          f"({e}); runs with {grown[1]}")
+                    used = grown[0]
+            wall = time.perf_counter() - t0
+            counted[(mode, shape)] = c = launches()
+            check_same(frag, fused[mode], what)
+            check(c[mode] > 0 and (mode == "banded" or c["banded"] == 0),
+                  f"{what} launched {c}")
+            print(f"# {what}: {frag['xStart'].shape[0]} fragments, equal to "
+                  f"device.compare; wall {wall:.6f} s on {smi}; K1 launches "
+                  f"{c['banded']}, K2 launches {c['ungapped']}")
+    return counted
+
+
+def make_config4() -> np.ndarray:
+    """benchmarks/run_config4.py's genome: two records (2L, 2R) of half
+    the size each, joined by one N."""
+    half = CONFIG4_SIZE // 2
+    g2l = synth.plant(half, CONFIG4_FAMS, seed=CONFIG4_SEEDS[0])
+    g2r = synth.plant(CONFIG4_SIZE - half, CONFIG4_FAMS, seed=CONFIG4_SEEDS[1])
+    return np.concatenate([g2l.codes, np.array([4], np.uint8), g2r.codes])
+
+
+def big_run(what: str, run, cfg: Config, smi: str):
+    """One counted run of a large configuration under with_auto_capacity
+    (as the reference's benchmarks/common.run_timed) -> (output, the
+    Config used, wall, launch counts)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    frag, used = with_auto_capacity(run, cfg)
+    wall = time.perf_counter() - t0
+    counted = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grown = {f: getattr(used, f) for f in ("hit_capacity", "seed_capacity",
+                                           "shard_slack")
+             if getattr(used, f) != getattr(cfg, f)}
+    check(counted[cfg.extend_mode] > 0, f"{what} launched {counted}")
+    host = host_clustering(frag, used, True)
+    print(f"# {what}: wall {wall:.6f} s, host clustering {host:.6f} s (timed "
+          f"apart), device part {wall - host:.6f} s (wall less clustering), "
+          f"peak device memory {peak:.3f} GiB, launches {counted}, capacities "
+          f"grown {grown or 'none'} on {smi}")
+    return frag, used, wall, counted
+
+
+def phase_config2(smi: str) -> dict:
+    g = synth.plant(CONFIG2_SIZE, CONFIG2_FAMS, seed=CONFIG2_SEED)
+    frag, used, _, counted = big_run(
+        "config #2 (device.compare)",
+        lambda c: tdevice.compare(g.codes, None, c, "cuda"), BIG_CFG, smi)
+    stats = orc.family_stats(frag, frag["group"])
+    got = {"fragments": int(frag["xStart"].shape[0]),
+           "families": int(np.unique(frag["group"]).shape[0]),
+           "largest family": int(stats["n_frags"].max())}
+    check(got == CONFIG2_WANT, f"config #2 gave {got}, want {CONFIG2_WANT}")
+    print(f"# config #2: {got}, as the JAX package's")
+    return counted
+
+
+def masking(codes: np.ndarray, frag: dict, cfg: Config) -> dict:
+    """run_config4.py's masking counts: repeat intervals on X, and the bp
+    that masking adds to the genome's Ns."""
+    iv = orc.repeat_intervals(frag, frag["group"], cfg, self_cmp=True)
+    masked = report_iv.mask_codes(codes, iv.get(0))
+    return {"fragments": int(frag["xStart"].shape[0]),
+            "repeat intervals": int(iv.get(0, np.zeros((0, 2))).shape[0]),
+            "masked bp": int((masked == 4).sum() - (codes == 4).sum())}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_config4(smi: str, rate: float) -> dict:
+    """Config #4 through compare_sharded over make_mesh(): the one-process
+    mesh, then a one-rank NCCL process mesh, each against the records;
+    then K1 against the plain version on window 0 strand f's phase-1
+    set -> {mesh kind: launch counts}, (worst error, K1 ms)."""
+    import torch.distributed as dist
+
+    codes = make_config4()
+    print(f"# config #4 genome: {codes.shape[0]} bp (two records)")
+    counted = {}
+    frag, used, _, counted["one-process"] = big_run(
+        "config #4 on the one-process mesh",
+        lambda c: compare_sharded(codes, None, c, make_mesh()), BIG_CFG, smi)
+    got = masking(codes, frag, used)
+    check(got == CONFIG4_WANT, f"config #4 gave {got}, want {CONFIG4_WANT}")
+    print(f"# config #4 on the one-process mesh: {got}, as the JAX package's")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        check(isinstance(mesh, ProcessMesh), f"{mesh} is not a process mesh")
+        for run in ("first", "second"):     # the first sets up the communicators
+            frag2, _, _, counted["NCCL process mesh"] = big_run(
+                f"config #4 on the one-rank NCCL process mesh, {run} run",
+                lambda c: compare_sharded(codes, None, c, mesh), used, smi)
+    finally:
+        dist.destroy_process_group()
+    check_same(frag2, frag, "config #4 on the NCCL process mesh")
+    print(f"# config #4 on the one-rank NCCL process mesh: "
+          f"{masking(codes, frag2, used)}, equal to the one-process mesh "
+          "field for field")
+    del frag, frag2
+    kernel, recorded = record_launches(
+        "banded_gotoh", lambda: compare_sharded(codes, None, used, make_mesh()))
+    args = recorded[0]
+    check(args[10] == PHASE1_ROWS and args[6] == +1,
+          f"the first K1 launch is not a phase-1 pass, right: {args[5:-1]}")
+    err, _ = compare_k1(args[:5], args[5:-1], args[-1])
+    ms = time_device(lambda: kernel(*args))
+    print(f"# K1 == plain on config #4's window 0, strand f, phase 1 (right): "
+          f"exact ({int(args[-1])} live seeds of {args[0].shape[0]}); K1 "
+          f"{ms:.6f} ms on {smi}")
+    return counted
+
+
+def phase_config5(smi: str) -> dict:
+    g = synth.plant(CONFIG5_SIZE, CONFIG5_FAMS, seed=CONFIG5_SEED)
+    frag, _, _, counted = big_run(
+        "config #5 at 0.25x on the one-process mesh",
+        lambda c: compare_sharded(g.codes, None, c, make_mesh()), CONFIG5_CFG, smi)
+    n = int(frag["xStart"].shape[0])
+    check(n == CONFIG5_FRAGS, f"config #5 gave {n} fragments, want {CONFIG5_FRAGS}")
+    print(f"# config #5 at 0.25x ({CONFIG5_SIZE} bp): {n} fragments, as the "
+          "JAX package's")
+    return counted
+
+
 def main() -> int:
+    n_gpus = machine_gpu_count()
     gpu = pin_one_card()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is "
@@ -942,6 +1186,8 @@ def main() -> int:
     rate = int32_rate(gpu)
     print(f"# python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    print(f"# GPUs on this machine before the pin (nvidia-smi -L): {n_gpus}; "
+          f"the run uses card {gpu} alone")
     phase_build()
     err2 = phase_k2_vs_plain(dev)
     err1 = phase_k1_vs_plain(dev)
@@ -976,6 +1222,11 @@ def main() -> int:
     phase_window_sets(g.codes, smi)
     phase_streamed_pair(*make_strain_pair(PAIR_SIZE, PAIR_SEED), pair_frags, smi)
     phase_stage_timing()
+    phase_sharded_headline(
+        g.codes, {"banded": fused_banded, "ungapped": fused_ungapped}, smi)
+    phase_config2(smi)
+    phase_config4(smi, rate)
+    phase_config5(smi)
     print(f"# chip_smoke phases took {time.perf_counter() - t_start:.3f} s")
 
     print(json.dumps({"kernels": [

@@ -110,15 +110,18 @@ class Result:
 
 def compare(x: SeqLike, y: Optional[SeqLike] = None, cfg: Config = DEFAULT,
             backend: str = "device", keep_intermediates: Optional[str] = None,
-            *, device="cuda") -> Result:
+            *, device="cuda", mesh=None) -> Result:
     """Compare sequence X against Y (or itself when y is None) and detect
     repeat fragments and families.
 
     backend "device" runs the torch pipeline on ``device`` (default
     "cuda": without a GPU this raises, it never drops to the CPU; pass
-    ``device="cpu"`` to run there). backend "oracle" runs the numpy
-    reference. Both give the same output. keep_intermediates (a
-    directory; device backend only) runs the pipeline stage by stage,
+    ``device="cpu"`` to run there). backend "sharded" runs
+    dist.sharded.compare_sharded over ``mesh`` (default
+    ``make_mesh(device=device)``: the ranks of an active process group,
+    else every visible device of that type). backend "oracle" runs the
+    numpy reference. All three give the same output. keep_intermediates
+    (a directory; device backend only) runs the pipeline stage by stage,
     dumps each stage's arrays there, and lets a rerun with identical
     inputs resume from the last completed stage."""
     xs = _as_seqset(x)
@@ -130,6 +133,9 @@ def compare(x: SeqLike, y: Optional[SeqLike] = None, cfg: Config = DEFAULT,
     if backend == "device":
         frag = _device.compare(xs.codes, codes_y, cfg, device,
                                keep_intermediates=keep_intermediates)
+    elif backend == "sharded":
+        from .dist.sharded import compare_sharded
+        frag = compare_sharded(xs.codes, codes_y, cfg, mesh, device=device)
     elif backend == "oracle":
         frag = orc.compare(xs.codes, codes_y, cfg)
     else:

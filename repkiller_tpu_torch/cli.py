@@ -12,9 +12,16 @@ on the CPU):
 Flags map 1:1 onto Config fields. ``--profile DIR`` writes a
 torch.profiler trace to DIR/trace.json; ``--keep-intermediates DIR``
 dumps each stage's arrays and resumes from them; ``--stage-timing`` also
-prints per-stage JSONL timings. There is one process, so the outputs are
-written directly. Flags of paths that are not ported yet exit with the
-ROADMAP item that brings them.
+prints per-stage JSONL timings.
+
+``--backend sharded`` runs the (data, shard) mesh pipeline. Across
+processes: ``--num-processes N --process-id i --coordinator host:port``,
+one rank each (nccl on CUDA, gloo on the CPU); every rank runs the whole
+comparison, rank 0 alone writes the outputs and prints the metrics line.
+The reference's two JAX runtime flags take these torch meanings:
+``--host-devices N`` is the number of (data, shard) bodies of a
+one-process mesh, all on ``--device`` (the reference's virtual devices);
+``--platform cpu|gpu|cuda`` selects ``--device``.
 """
 
 from __future__ import annotations
@@ -99,19 +106,17 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--stage-timing", action="store_true",
                     help="also run the pipeline stage-by-stage and print "
                          "per-stage JSONL timings (forward strand)")
-    # multi-process flags of the reference, kept so that they exit naming
-    # the item that ports them
     pr.add_argument("--num-processes", type=int, default=1,
-                    help="not ported yet: total processes")
+                    help="total processes of a multi-process sharded run")
     pr.add_argument("--process-id", type=int, default=None,
-                    help="not ported yet: this process's rank")
+                    help="this process's rank")
     pr.add_argument("--coordinator", default="127.0.0.1:29477",
-                    help="not ported yet: rank-0 coordinator host:port")
+                    help="rank-0 coordinator address host:port")
     pr.add_argument("--platform", default=None,
-                    help="not ported yet (a JAX platform in the reference)")
+                    help="cpu, gpu or cuda: the same as --device cpu or cuda")
     pr.add_argument("--host-devices", type=int, default=None,
-                    help="not ported yet (virtual JAX devices in the "
-                         "reference)")
+                    help="bodies of a one-process sharded mesh, all on "
+                         "--device")
     _add_config_flags(pr)
 
     pg = sub.add_parser("group", help="cluster an existing fragments CSV")
@@ -123,18 +128,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """Exit for the flags whose paths the port does not have yet."""
-    unported = [
-        (args.backend == "sharded", "--backend sharded", 14),
-        (args.num_processes > 1, "--num-processes > 1", 14),
-        (args.platform is not None, "--platform", 14),
-        (args.host_devices is not None, "--host-devices", 14),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise SystemExit(f"{flag} is not ported to repkiller_tpu_torch "
-                             f"yet: ROADMAP.md section 1 item {item}")
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def _init_runtime(args: argparse.Namespace) -> None:
+    """The reference's refusals and multi-process bring-up, and the torch
+    meanings of --platform (it sets the type of --device, whose default
+    cuda it may override) and --host-devices."""
+    if args.platform is not None:
+        want = _PLATFORMS.get(args.platform)
+        have = args.device.split(":")[0]
+        if want is None or (want != have and args.device != "cuda"):
+            raise SystemExit(
+                f"--platform {args.platform} does not select --device "
+                f"{args.device}: the port runs on a torch device, so use "
+                "--device (cpu, cuda or cuda:N); --platform takes cpu, gpu "
+                "or cuda")
+        if want != have:
+            args.device = want
+    if args.num_processes > 1:
+        if args.process_id is None:
+            raise SystemExit("--process-id is required with --num-processes")
+        if args.backend != "sharded":
+            raise SystemExit("--num-processes>1 requires --backend sharded")
+        if args.fasta_x == "-":
+            # each rank would read its own stdin, and launchers feed only
+            # rank 0: the ranks would build different "replicated" inputs
+            raise SystemExit("stdin input ('-') is not supported with "
+                             "--num-processes>1; pass a file path visible "
+                             "to every rank")
+        if args.host_devices:
+            raise SystemExit("--host-devices is a one-process mesh; with "
+                             "--num-processes>1 each rank holds one body")
+        from .dist.mesh import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id, device=args.device)
 
 
 @contextlib.contextmanager
@@ -153,8 +181,12 @@ def _profiled(out_dir, device: str):
 
 
 def cmd_run(args: argparse.Namespace) -> int:
-    _refuse_unported(args)
     cfg = _config_from_args(args)
+    _init_runtime(args)
+    mesh = None
+    if args.host_devices:
+        from .dist.mesh import make_mesh
+        mesh = make_mesh(devices=[args.device] * args.host_devices)
     src_x = sys.stdin.read() if args.fasta_x == "-" else args.fasta_x
     t0 = time.perf_counter()
     profile_ctx = (_profiled(args.profile, args.device) if args.profile
@@ -165,7 +197,7 @@ def cmd_run(args: argparse.Namespace) -> int:
                 res = api.compare(src_x, args.fasta_y, cfg,
                                   backend=args.backend,
                                   keep_intermediates=args.keep_intermediates,
-                                  device=args.device)
+                                  device=args.device, mesh=mesh)
                 break
             except ValueError as e:
                 grown = grow_capacity(cfg, str(e))
@@ -176,13 +208,19 @@ def cmd_run(args: argparse.Namespace) -> int:
                 cfg = grown[0]
     dt = time.perf_counter() - t0
 
+    from .dist.merge import is_output_host, write_on_host0
+
     prefix = args.out_prefix
-    res.write_csv(prefix + ".frags.csv", coords=args.coords)
-    res.write_family_summary(prefix + ".families.csv")
-    res.write_intervals(prefix + ".repeats.bed")
-    if args.mask:
-        with open(prefix + ".masked.fasta", "w") as f:
-            f.write(res.masked_fasta())
+
+    def _write_all():
+        res.write_csv(prefix + ".frags.csv", coords=args.coords)
+        res.write_family_summary(prefix + ".families.csv")
+        res.write_intervals(prefix + ".repeats.bed")
+        if args.mask:
+            with open(prefix + ".masked.fasta", "w") as f:
+                f.write(res.masked_fasta())
+
+    write_on_host0(_write_all)
 
     if args.stage_timing:
         profile_stages(res.x.codes, None if res.self_cmp else res.y.codes,
@@ -196,10 +234,11 @@ def cmd_run(args: argparse.Namespace) -> int:
         "backend": args.backend,
     }
     log.info("run: %s", metrics)
-    print(json.dumps(metrics))
-    if args.metrics_json:
-        with open(args.metrics_json, "a") as f:
-            f.write(json.dumps(metrics) + "\n")
+    if is_output_host():
+        print(json.dumps(metrics))
+        if args.metrics_json:
+            with open(args.metrics_json, "a") as f:
+                f.write(json.dumps(metrics) + "\n")
     return 0
 
 
@@ -223,9 +262,15 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
-    if args.cmd == "run":
+    if args.cmd != "run":
+        return cmd_group(args)
+    from .dist.mesh import process_group_active
+    try:
         return cmd_run(args)
-    return cmd_group(args)
+    finally:
+        if process_group_active():        # joined by --num-processes
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

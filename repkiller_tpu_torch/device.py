@@ -268,16 +268,15 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
     itself) on ``device`` -> the canonical fragment dict (original
     coordinates, numpy, compacted to the true count) with the
     host-computed "group" family column. Raises on hit, seed and fragment
-    capacity overflow. ``timings`` gathers the stage walls of
-    compare_fn, or of compare_staged with keep_intermediates, plus
-    "families" for the host clustering.
+    capacity overflow. Runs compare_staged, the reference's default path;
+    ``timings`` gathers its stage walls under the reference's keys.
 
-    keep_intermediates (a directory) runs compare_staged, one stage at a
-    time with the same output, dumps each stage's arrays there, and a
-    rerun with identical inputs resumes from the last completed stage.
-    Without it the fused compare_fn runs. The reference also takes
-    ``staged``, its default, because its fused program compiles slowly on
-    a TPU; torch compiles nothing, so the port has no such option."""
+    keep_intermediates (a directory) dumps each stage's arrays there, and
+    a rerun with identical inputs resumes from the last completed stage.
+    The reference also takes ``staged`` because its fused program
+    compiles slowly on a TPU; torch compiles nothing, so the port has no
+    such option. compare_fn, the counterpart of that fused program, gives
+    the same output."""
     dev = check_device(device)
     self_cmp = codesY is None
     codes_x = np.asarray(codesX, np.uint8)
@@ -288,12 +287,10 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
         return frag
     cx = torch.from_numpy(codes_x.copy()).to(dev)
     cy = None if self_cmp else torch.from_numpy(codes_y.copy()).to(dev)
-    if keep_intermediates:
-        store = StageStore(keep_intermediates, fingerprint(codesX, codesY, cfg))
-        out, n_frags, total_hits, n_seeds = compare_staged(
-            cx, cy, cfg, timings, store)
-    else:
-        out, n_frags, total_hits, n_seeds = compare_fn(cx, cy, cfg, timings)
+    store = (StageStore(keep_intermediates, fingerprint(codesX, codesY, cfg))
+             if keep_intermediates else None)
+    out, n_frags, total_hits, n_seeds = compare_staged(cx, cy, cfg, timings,
+                                                       store)
 
     total_hits = total_hits.cpu().numpy()
     if (total_hits > cfg.hit_capacity).any():
@@ -311,8 +308,5 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
             f"frag capacity overflow ({n} fragments fill the array); "
             "raise Config.seed_capacity / Config.hit_capacity")
     frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
-    t0 = time.perf_counter()
     frag["group"] = cluster_families(frag, cfg, self_cmp)
-    if timings is not None:
-        timings["families"] = timings.get("families", 0.0) + time.perf_counter() - t0
     return frag

@@ -1,4 +1,5 @@
 """Drivers beyond one whole-genome program (counterpart of
 repkiller_tpu/dist/): the streamed window driver with per-window
-checkpoint/resume (windows.py). The sharded backend is not ported yet
-(ROADMAP.md section 1 item 14)."""
+checkpoint/resume (windows.py), and the sharded backend over a (data,
+shard) mesh (mesh.py, sharded.py, with index/shards.py) and its
+cross-process output helpers (merge.py)."""

@@ -99,11 +99,11 @@ def join_hits(kx, px, nx_valid, ky, py, ny_valid, k: int, max_occ: int,
     n_full_valid): count X-side occurrences against this full index
     (needed when kx is a window). same_index: kx/px ARE ky/py, so the run
     bounds come from scans, not a search, and the "f" bound is xi + 1.
-    ``shard`` belongs to the sharded path, which is not ported."""
-    if shard is not None:
-        raise NotImplementedError(
-            "join_hits: shard belongs to the sharded path, ROADMAP.md "
-            "section 1 item 14")
+    shard (shard_id, n_shards): keep only the X k-mers that hash-prefix
+    shard shard_id owns, ``kx >> (2k - log2 n_shards)`` (``kx % n_shards``
+    when that shift is not positive); n_shards must be a power of two."""
+    if shard is not None and shard[1] & (shard[1] - 1):
+        raise ValueError(f"n_shards must be a power of two, got {shard[1]}")
     nx = kx.shape[0]
     dev = kx.device
     xi = torch.arange(nx, dtype=torch.int32, device=dev)
@@ -137,6 +137,11 @@ def join_hits(kx, px, nx_valid, ky, py, ny_valid, k: int, max_occ: int,
         xlo, xhi = _run_bounds(kx)
         occ_x = torch.minimum(xhi, nx_valid) - torch.minimum(xlo, nx_valid)
     keep = (xi < nx_valid) & (occ_x <= max_occ) & (occ_y <= max_occ)
+    if shard is not None:
+        shard_id, n_shards = shard
+        shift = 2 * k - (int(n_shards) - 1).bit_length()
+        owner = kx % n_shards if shift <= 0 else kx >> shift
+        keep &= owner == shard_id
 
     # the exact canonical-half bounds of a self-comparison
     if self_mode == "f" and same_index:

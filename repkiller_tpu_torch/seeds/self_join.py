@@ -5,7 +5,7 @@ revcomp-space y coordinates."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,16 +30,27 @@ def _expand(lo: torch.Tensor, counts: torch.Tensor, capacity: int,
 
 
 def join_self_canonical(ci: CanonIndex, k: int, max_occ: int, capacity: int,
-                        y_len: int):
+                        y_len: int, entry_slice: Optional[Tuple[int, int]] = None):
     """-> ((hpx_f, hpy_f, valid_f, total_f), (hpx_r, hpy_r, valid_r,
     total_r)): forward and reverse strand hits, static capacity each, with
-    the true totals so that overflow is detected by the caller."""
+    the true totals so that overflow is detected by the caller.
+
+    entry_slice (offset, blk) enumerates only the entries [offset,
+    offset + blk); partner lookups still read the whole ``pos_b``. Every hit
+    has one source entry, so the hit sets of slices that tile the entries
+    partition the full hit set (the sharded self path's per-device split).
+    As the reference's ``dynamic_slice``, the slice's start is clamped so
+    that it lies inside the arrays, while entry ids count from ``offset``."""
     n = ci.pos.shape[0]
     dev = ci.pos.device
-    pos, flag, palin = ci.pos, ci.flag, ci.palin
-    run_lo, run_mid, run_hi = ci.run_lo, ci.run_mid, ci.run_hi
+    off, m = (0, n) if entry_slice is None else map(int, entry_slice)
+    start = min(max(off, 0), n - m)
+    pos, flag, palin, run_lo, run_mid, run_hi, own_rank, alt_before = (
+        a[start:start + m] for a in (ci.pos, ci.flag, ci.palin, ci.run_lo,
+                                     ci.run_mid, ci.run_hi, ci.own_rank,
+                                     ci.alt_before))
 
-    xi = torch.arange(n, dtype=torch.int32, device=dev)
+    xi = off + torch.arange(m, dtype=torch.int32, device=dev)
     is_valid = xi < ci.n_valid
     f0 = flag == 0
     own_lo = torch.where(f0, run_lo, run_mid)
@@ -49,7 +60,7 @@ def join_self_canonical(ci: CanonIndex, k: int, max_occ: int, capacity: int,
     own_n = own_hi - own_lo
     alt_n = alt_hi - alt_lo
     run_n = run_hi - run_lo
-    slot = own_lo + ci.own_rank                      # my B slot
+    slot = own_lo + own_rank                         # my B slot
 
     # forward: same k-mer, px < py (palindromic runs are all flag 0)
     keep_f = is_valid & (own_n <= max_occ)
@@ -62,7 +73,7 @@ def join_self_canonical(ci: CanonIndex, k: int, max_occ: int, capacity: int,
     # reverse: km_p == rc(km_q), p <= q (palindrome self pair kept once)
     occ_ry = torch.where(palin, run_n, alt_n)
     keep_r = is_valid & (own_n <= max_occ) & (occ_ry <= max_occ)
-    r_lo = torch.where(palin, slot, alt_lo + ci.alt_before)
+    r_lo = torch.where(palin, slot, alt_lo + alt_before)
     r_hi = torch.where(palin, run_hi, alt_hi)
     cnt_r = torch.where(keep_r, torch.clamp(r_hi - r_lo, min=0), 0)
     px_r, yi_r, valid_r, total_r = _expand(r_lo, cnt_r, capacity, pos)

@@ -5,7 +5,8 @@ byte as ``repkiller_tpu.cli run --backend oracle`` does (the oracle gives
 the device backend's bytes, more cheaply), self and pairwise; the
 ``group`` round trip; ``--auto-capacity``; ``--profile``;
 ``--keep-intermediates`` (the reference's stage files, and a resume from
-them); ``--stage-timing``; and the flags of paths not ported yet."""
+them); ``--stage-timing``; ``--backend sharded`` with ``--host-devices``
+and ``--platform``; and the flags the run refuses."""
 
 import glob
 import json
@@ -112,16 +113,48 @@ def test_profile_writes_a_trace(fastas, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--backend", "sharded"], "item 14"),
-    (["--num-processes", "2", "--process-id", "0"], "item 14"),
-    (["--platform", "cpu"], "item 14"),
-    (["--host-devices", "4"], "item 14"),
+    (["--num-processes", "2"], "--process-id is required"),
+    (["--num-processes", "2", "--process-id", "0"], "requires --backend sharded"),
+    (["--platform", "tpu"], "--device"),
+    (["--platform", "gpu", "--device", "cpu"], "--device"),
+    (["--host-devices", "2", "--num-processes", "2", "--process-id", "0",
+      "--backend", "sharded"], "--host-devices is a one-process mesh"),
 ])
 def test_unported_flags_exit(fastas, tmp_path, flags, item):
+    """The multi-process and runtime flags that the run refuses, before it
+    reads input or joins a process group: the reference's refusals, and
+    --platform values with no torch meaning or against --device."""
     with pytest.raises(SystemExit, match=item):
         tcli.main(["run", fastas["x"], "-o", str(tmp_path / "o"), "--device",
                    "cpu", *flags])
     assert not os.path.exists(str(tmp_path / "o.frags.csv"))
+
+
+def test_stdin_refused_with_num_processes(tmp_path):
+    with pytest.raises(SystemExit, match="stdin input"):
+        tcli.main(["run", "-", "-o", str(tmp_path / "o"), "--device", "cpu",
+                   "--backend", "sharded", "--num-processes", "2",
+                   "--process-id", "0"])
+
+
+@pytest.mark.parametrize("runtime", [["--platform", "cpu", "--device", "cuda"],
+                                     ["--host-devices", "4", "--device", "cpu"]],
+                         ids=["platform", "host-devices"])
+def test_sharded_run_matches_reference_cli(fastas, tmp_path, capsys, runtime):
+    """``--backend sharded`` on a one-process mesh (``--host-devices``) or
+    with ``--platform cpu`` selecting the device writes the reference's
+    bytes."""
+    ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
+    assert tcli.main(["run", fastas["x"], "-o", ours, "--backend", "sharded",
+                      *runtime, *FLAGS]) == 0
+    got = _last_json(capsys)
+    assert jcli.main(["run", fastas["x"], "-o", ref, "--backend", "oracle",
+                      *FLAGS]) == 0
+    want = _last_json(capsys)
+    for suffix in OUTPUTS:
+        with open(ours + suffix, "rb") as a, open(ref + suffix, "rb") as b:
+            assert a.read() == b.read(), suffix
+    assert got["backend"] == "sharded" and got["fragments"] == want["fragments"] > 0
 
 
 def _stage_arrays(d):

@@ -1,7 +1,8 @@
 """Tests of the torch port that need an NVIDIA GPU: kernels K1 and K2
 against their plain versions on the card, and the pipeline on the card
 (self and pairwise, banded and ungapped; fused, staged with resume,
-streamed, and per-stage timing) against the CPU.
+streamed, sharded on a one-process mesh and on a one-rank NCCL process
+mesh, and per-stage timing) against the CPU or device.compare.
 
 They skip where no GPU is visible; on a machine with one, run
     python -m pytest tests/test_torch_cuda.py -q
@@ -14,6 +15,8 @@ import torch
 
 from repkiller_tpu_torch import device as tdevice
 from repkiller_tpu_torch.config import Config
+from repkiller_tpu_torch.dist.mesh import ProcessMesh, make_mesh
+from repkiller_tpu_torch.dist.sharded import compare_sharded
 from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, ungapped
 from repkiller_tpu_torch.extend.banded import direction_plain
@@ -424,3 +427,47 @@ def test_profile_stages_on_card_matches_cpu(gpu):
     for r in got + want:
         assert r.pop("wall_s") >= 0
     assert got == want and got[2]["hits"] > 0
+
+
+@pytest.mark.parametrize("mode", ["ungapped", "banded"])
+@pytest.mark.parametrize("pair", [False, True], ids=["self", "pair"])
+def test_sharded_mesh_on_card_matches_device(gpu, mode, pair):
+    """A (2, 2) one-process mesh of four bodies on the card equals
+    device.compare on the card, and launches the mode's kernel."""
+    g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=8)
+    y = g.codes[1000:15000].copy() if pair else None
+    cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 15,
+                 max_extend=512)
+    want = tdevice.compare(g.codes, y, cfg, gpu)
+    k = _kernel(mode).launches
+    got = compare_sharded(g.codes, y, cfg, make_mesh(2, 2, [gpu] * 4))
+    assert _kernel(mode).launches > k
+    assert got["xStart"].shape[0] > 0
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f
+
+
+def test_sharded_nccl_process_mesh_matches_local_mesh(gpu):
+    """A one-rank NCCL process group: compare_sharded over its process mesh
+    (its collectives run on the card) equals the one-process mesh."""
+    import socket
+    import torch.distributed as dist
+
+    g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=9)
+    cfg = Config(k=12, strands="fr", extend_mode="banded",
+                 hit_capacity=1 << 15, max_extend=512)
+    want = compare_sharded(g.codes, None, cfg, make_mesh(devices=[gpu]))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert isinstance(mesh, ProcessMesh) and mesh.devices[(0, 0)] == gpu
+        got = compare_sharded(g.codes, None, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    for f in want:
+        assert np.array_equal(got[f], want[f]), f

@@ -130,9 +130,11 @@ def test_join_hits(max_occ):
 
 
 def test_join_hits_unported_arguments_raise():
+    """``shard`` is ported (tests/test_torch_shards.py); a shard count that
+    is not a power of two is refused."""
     t = tbuild.build_index(torch.from_numpy(_codes(5)), 12)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tjoin.join_hits(*t, *t, k=12, max_occ=8, capacity=64, shard=(0, 2))
+    with pytest.raises(ValueError, match="power of two"):
+        tjoin.join_hits(*t, *t, k=12, max_occ=8, capacity=64, shard=(0, 3))
 
 
 @pytest.mark.parametrize("mode", ["ungapped", "banded"])

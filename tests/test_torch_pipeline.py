@@ -22,10 +22,9 @@ from repkiller_tpu import device as jdevice
 from repkiller_tpu.chain.diagonal import extend_gated as j_extend_gated
 from repkiller_tpu.chain.merge import merge_accept as j_merge
 from repkiller_tpu.config import Config as JConfig
-from repkiller_tpu.io import codec
 from repkiller_tpu.oracle import pipeline as orc
 from repkiller_tpu.utils import synth
-from repkiller_tpu_torch import api, cli as tcli, device as tdevice
+from repkiller_tpu_torch import api, device as tdevice
 from repkiller_tpu_torch.chain.merge import merge_accept as t_merge
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.convert import to_numpy, to_torch
@@ -160,17 +159,15 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 def test_unported_paths_raise(tmp_path):
     """keep_intermediates with a backend other than "device" raises the
-    reference's ValueError; the sharded backend is not ported yet and
-    exits naming its ROADMAP item."""
+    reference's ValueError, the sharded backend's included; an unknown
+    backend raises too."""
     codes = _genome(7, L=2000)
-    with pytest.raises(ValueError, match="requires the device backend"):
-        api.compare(codes, None, CFG, "oracle", str(tmp_path), device="cpu")
+    for backend in ("oracle", "sharded"):
+        with pytest.raises(ValueError, match="requires the device backend"):
+            api.compare(codes, None, CFG, backend, str(tmp_path), device="cpu")
     assert not os.listdir(tmp_path)
-    fa = tmp_path / "g.fa"
-    fa.write_text(">g\n" + codec.decode(codes) + "\n")
-    with pytest.raises(SystemExit, match="item 14"):
-        tcli.main(["run", str(fa), "-o", str(tmp_path / "o"), "--backend",
-                   "sharded", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown backend"):
+        api.compare(codes, None, CFG, "streamed", device="cpu")
 
 
 NO_JAX = """
@@ -183,6 +180,9 @@ import repkiller_tpu_torch.cli
 import repkiller_tpu_torch.dist.windows
 import repkiller_tpu_torch.utils.checkpoint
 import repkiller_tpu_torch.utils.metrics
+import repkiller_tpu_torch.dist.merge
+from repkiller_tpu_torch.dist.mesh import make_mesh
+from repkiller_tpu_torch.dist.sharded import compare_sharded
 import chip_smoke                  # imported, main() not run
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.io import codec
@@ -197,6 +197,8 @@ for cfg in (banded, Config()):                      # Config(): ungapped
         assert res.n_fragments > 0, (cfg.extend_mode, y is None)
         print(cfg.extend_mode, "self" if y is None else "pair",
               "fragments", res.n_fragments)
+sharded = compare_sharded(g.codes, None, banded, make_mesh(2, 2, ["cpu"] * 4))
+print("sharded self fragments", sharded["xStart"].shape[0])
 fa = {tmp!r} + "/g.fa"
 open(fa, "w").write(">g\\n" + codec.decode(g.codes) + "\\n")
 assert repkiller_tpu_torch.cli.main(
@@ -206,7 +208,8 @@ assert repkiller_tpu_torch.cli.main(
 
 def test_port_never_imports_jax(tmp_path):
     """With jax and the JAX package blocked: the banded and the default
-    (ungapped) Config, self and pairwise, and the CLI's run; and no line of
+    (ungapped) Config, self and pairwise, the sharded backend on a (2, 2)
+    CPU mesh, and the CLI's run; and no line of
     the port or of chip_smoke.py imports either."""
     code = NO_JAX.format(root=str(ROOT), tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code],
@@ -214,7 +217,7 @@ def test_port_never_imports_jax(tmp_path):
                           env={**os.environ, "REPKILLER_DEVICE_CLUSTER": "1",
                                "OMP_NUM_THREADS": "1"})  # as _torch_threads
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count(" fragments ") == 4, proc.stdout
+    assert proc.stdout.count(" fragments ") == 5, proc.stdout
     assert '"stage": "run"' in proc.stdout, proc.stdout
     assert (tmp_path / "o.frags.csv").exists()
     pattern = re.compile(r"import jax|from jax|"

@@ -62,11 +62,27 @@ def test_staged_matches_jax_and_fused(tmp_path, self_cmp):
                           keep_intermediates=str(tmp_path / "ckpt"))
     _assert_frag_equal(got, jdevice.compare(cx, cy, _ref(CFG)))
     _assert_frag_equal(got, tdevice.compare(cx, cy, CFG, "cpu"))
+    out, n_frags, _, _ = tdevice.compare_fn(
+        torch.from_numpy(cx.copy()),
+        None if cy is None else torch.from_numpy(cy.copy()), CFG)
+    for f in orc.FRAG_FIELDS:                # the fused program's output
+        assert np.array_equal(got[f], out[f][:int(n_frags)].numpy()), f
     want_keys = ({"seeds", "extend", "merge"} if self_cmp else
                  {"revcomp", "index_x", "index_y", "join", "filter", "extend",
                   "merge"})
-    assert set(timings) == want_keys | {"families"}
+    assert set(timings) == want_keys
     assert got["xStart"].shape[0] > 0 and set(got["strand"]) == {0, 1}
+
+
+@pytest.mark.parametrize("self_cmp", [True, False], ids=["self", "pair"])
+def test_compare_timings_keys_are_the_references(self_cmp):
+    """device.compare runs the reference's default, staged path and
+    records its stage keys, no others."""
+    cx, cy = _inputs(self_cmp)
+    got, want = {}, {}
+    tdevice.compare(cx, cy, CFG, "cpu", timings=got)
+    jdevice.compare(cx, cy, _ref(CFG), timings=want)
+    assert set(got) == set(want) and got
 
 
 @pytest.mark.parametrize("self_cmp", [True, False], ids=["self", "pair"])
