@@ -87,7 +87,22 @@ Phases, each of which must pass (any failure exits non-zero):
      phase-1 set of window 0, strand f;
  15. config #5 at 0.25x (benchmarks/run_config5.py: 62 Mbp, k=16, banded,
      hit capacity 2^21) through compare_sharded over make_mesh(): 140,486
-     fragments.
+     fragments;
+ 16. family clustering on the card (families/device.py) against the host
+     path, on the output tables of the banded headline, config #3 banded,
+     configs #2, #4 and #5 at 0.25x, and on the dense pileups of
+     benchmarks/cluster_chip_bench.py at 6,600 and 19,000 loci x 32: the
+     labels equal; fragments, edges before and after the ratio filter,
+     rounds, the host path's seconds (median of 3), the device path's
+     (median of 3 after a warm-up, labels on the host) and its peak device
+     memory. Then device.compare on the banded headline with
+     REPKILLER_DEVICE_CLUSTER=1: the path it took and its output, equal to
+     phase 5's field for field;
+ 17. the native host I/O (io/native.py, built with g++ in phase 1): config
+     #4's 48 Mbp genome as a two-record FASTA through read_fasta (native)
+     and the numpy parse, equal SeqSets; config #3's banded fragments
+     through the native and the Python CSV writers, equal bytes; both
+     paths' times. Phase 4's CLI run writes its CSV with the native writer.
 
 Before the card is pinned, ``nvidia-smi -L`` gives the machine's GPU
 count, printed on an informational line. The counts of configs #2, #4 and
@@ -95,7 +110,7 @@ count, printed on an informational line. The counts of configs #2, #4 and
 runs under utils/capacity.with_auto_capacity, and any grown capacity is
 printed.
 
-Every main-path run (5, 6, both runs of 7, those of 8-10 and 12-15) sets
+Every main-path run (5, 6, both runs of 7, those of 8-10 and 12-16) sets
 the kernels' launch counts to 0 just before it and reads them just after.
 A kernel's device time is taken with CUDA events around 20 launches that
 the host queues while a ``torch.cuda._sleep`` holds the stream, so it
@@ -124,9 +139,10 @@ from repkiller_tpu_torch.dist.mesh import ProcessMesh, make_mesh
 from repkiller_tpu_torch.dist.sharded import compare_sharded
 from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, banded, ungapped
-from repkiller_tpu_torch.families import cluster_families
+from repkiller_tpu_torch.families import cluster as tcluster, cluster_families
+from repkiller_tpu_torch.io import fasta as tfasta, native
 from repkiller_tpu_torch.oracle import pipeline as orc
-from repkiller_tpu_torch.report import intervals as report_iv
+from repkiller_tpu_torch.report import csv_writer, intervals as report_iv
 from repkiller_tpu_torch.utils import synth
 from repkiller_tpu_torch.utils.capacity import grow_capacity, with_auto_capacity
 from repkiller_tpu_torch.utils.scan import partition_live
@@ -194,6 +210,10 @@ STAGE_RECORDS = {"h2d": ["bp"], "index_build": ["kmers"], "seed_join": ["hits"],
                  "hit_filter": ["seeds"], "extension": ["seeds", "cells"],
                  "merge_accept": ["fragments"], "families_host": ["families"]}
 PHASE1_ROWS = 192
+# benchmarks/cluster_chip_bench.py's dense pileups: loci x 32 fragments;
+# 6,600 loci gave 3,523,458 edges (BASELINE.md, TPU v5e round 5), 19,000
+# loci about 10M, the tier the reference's record left open
+PILEUP_LOCI = (6600, 19000)
 # (match, mismatch, gap_open, gap_extend, x_drop) besides the defaults
 K1_SCORES = [(4, -4, 8, 0, 40), (4, -4, 60, 2, 40), (1, -3, 5, 2, 20),
              (2, -7, 8, 1, 25), (4, -4, 8, 2, 2**31 - 1), (4, -4, 8, 2, -3)]
@@ -360,6 +380,10 @@ def phase_build():
     libs = _cuda.build(_cuda.BANDED_SOURCE, _cuda.UNGAPPED_SOURCE)
     print(f"# build: {', '.join(so.name for so in libs)} in "
           f"{time.perf_counter() - t0:.3f} s (one nvcc each, together)")
+    t0 = time.perf_counter()
+    check(native.available(), "the native I/O library did not build")
+    print(f"# build: {native.library_path(native.SOURCE).name} (g++) in "
+          f"{time.perf_counter() - t0:.3f} s")
     for so in libs:
         log = Path(f"{so}.log")
         if log.exists():
@@ -491,7 +515,8 @@ def phase_cli():
                   == (GOLDEN / f"golden30k{suffix}").read_bytes(),
                   f"the CLI's {suffix} differs from the golden file")
         metrics = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"# CLI run on the card: golden CSV and BED byte-identical; "
+    print(f"# CLI run on the card: golden CSV (native writer: "
+          f"{native.available()}) and BED byte-identical; "
           f"{metrics['fragments']} fragments, process wall "
           f"{time.perf_counter() - t0:.3f} s")
 
@@ -1096,7 +1121,7 @@ def phase_config2(smi: str) -> dict:
            "largest family": int(stats["n_frags"].max())}
     check(got == CONFIG2_WANT, f"config #2 gave {got}, want {CONFIG2_WANT}")
     print(f"# config #2: {got}, as the JAX package's")
-    return counted
+    return frag
 
 
 def masking(codes: np.ndarray, frag: dict, cfg: Config) -> dict:
@@ -1120,7 +1145,7 @@ def phase_config4(smi: str, rate: float) -> dict:
     """Config #4 through compare_sharded over make_mesh(): the one-process
     mesh, then a one-rank NCCL process mesh, each against the records;
     then K1 against the plain version on window 0 strand f's phase-1
-    set -> {mesh kind: launch counts}, (worst error, K1 ms)."""
+    set -> (the genome, the one-process mesh's output)."""
     import torch.distributed as dist
 
     codes = make_config4()
@@ -1147,7 +1172,7 @@ def phase_config4(smi: str, rate: float) -> dict:
     print(f"# config #4 on the one-rank NCCL process mesh: "
           f"{masking(codes, frag2, used)}, equal to the one-process mesh "
           "field for field")
-    del frag, frag2
+    del frag2
     kernel, recorded = record_launches(
         "banded_gotoh", lambda: compare_sharded(codes, None, used, make_mesh()))
     args = recorded[0]
@@ -1158,7 +1183,7 @@ def phase_config4(smi: str, rate: float) -> dict:
     print(f"# K1 == plain on config #4's window 0, strand f, phase 1 (right): "
           f"exact ({int(args[-1])} live seeds of {args[0].shape[0]}); K1 "
           f"{ms:.6f} ms on {smi}")
-    return counted
+    return codes, frag
 
 
 def phase_config5(smi: str) -> dict:
@@ -1170,7 +1195,205 @@ def phase_config5(smi: str) -> dict:
     check(n == CONFIG5_FRAGS, f"config #5 gave {n} fragments, want {CONFIG5_FRAGS}")
     print(f"# config #5 at 0.25x ({CONFIG5_SIZE} bp): {n} fragments, as the "
           "JAX package's")
-    return counted
+    return frag
+
+
+def pileup_frags(n_loci: int, copies: int = 32, seed: int = 5) -> dict:
+    """benchmarks/cluster_chip_bench.py's synthetic_pileups, copied: n_loci
+    repeat loci of ``copies`` same-locus fragments each, about n_loci *
+    copies^2 / 2 edges."""
+    rng = np.random.default_rng(seed)
+    n = n_loci * copies
+    base = np.repeat(rng.integers(0, 1 << 27, n_loci), copies)
+    jit_ = rng.integers(0, 8, n)
+    xs = (base + jit_).astype(np.int32)
+    ln = rng.integers(150, 170, n).astype(np.int32)
+    ys = rng.integers(0, 1 << 27, n).astype(np.int32)
+    frag = {
+        "xStart": xs, "xEnd": xs + ln - 1,
+        "yStart": ys, "yEnd": ys + ln - 1,
+        "strand": np.zeros(n, np.int32), "length": ln,
+        "score": ln * 4, "idents": ln,
+    }
+    order = np.lexsort((frag["yStart"], frag["xStart"], frag["strand"]))
+    return {k: v[order] for k, v in frag.items()}
+
+
+def cluster_both_paths(what: str, frag: dict, cfg: Config, self_cmp: bool,
+                       smi: str) -> dict:
+    """Both clustering paths of families/cluster.py on one output table,
+    on the card: the host path three times, the device path once for its
+    edges, rounds and peak memory and then three times; every call's
+    labels against the host path's -> the row's numbers."""
+    frag = {f: v for f, v in frag.items() if f != "group"}
+    n = int(frag["xStart"].shape[0])
+    t0 = time.perf_counter()
+    fidx, counts, _, lo, lens, pct, total, _ = tcluster._edge_ranges(
+        frag, cfg, self_cmp)
+    table_s = time.perf_counter() - t0
+    check(total <= tcluster.DEVICE_EDGE_CAP, f"{what}: {total} edges over "
+          "the device path's cap")
+    host_s, dev_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = cluster_families(frag, cfg, self_cmp, device_min_edges=1 << 62,
+                                device="cuda")
+        host_s.append(time.perf_counter() - t0)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tcluster.cluster_families_device(n, fidx, counts, lo, lens, pct,
+                                           total, "cuda", stats)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    check(np.array_equal(got, host), f"{what}: device labels differ")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cluster_families(frag, cfg, self_cmp, device_min_edges=0,
+                               device="cuda")
+        dev_s.append(time.perf_counter() - t0)
+        check(np.array_equal(got, host), f"{what}: device labels differ")
+    row = {"fragments": n, "edges": total, "kept": stats["edges"],
+           "rounds": stats["rounds"], "families": int(np.unique(host).shape[0]),
+           "host_s": statistics.median(host_s),
+           "device_s": statistics.median(dev_s), "table_s": table_s,
+           "peak_mib": peak}
+    print(f"# clustering, {what}: {n} fragments, {total} edges, {row['kept']} "
+          f"after the ratio filter, {row['rounds']} rounds, {row['families']} "
+          f"families; host path {row['host_s']:.6f} s "
+          f"{[round(t, 6) for t in host_s]}, device path "
+          f"{row['device_s']:.6f} s {[round(t, 6) for t in dev_s]} (its "
+          f"interval table on the host {table_s:.6f} s), device peak "
+          f"{peak:.1f} MiB; labels equal on {smi}")
+    return row
+
+
+def phase_clustering(tables: list, codes: np.ndarray, fused: dict,
+                     smi: str) -> None:
+    """Phase 16: cluster_both_paths on every output table and pileup; then
+    device.compare on the banded headline with REPKILLER_DEVICE_CLUSTER=1,
+    launches counted, against phase 5's output, with the path it took."""
+    rows = {}
+    for what, frag, cfg, self_cmp in tables:
+        rows[what] = cluster_both_paths(what, frag, cfg, self_cmp, smi)
+    for loci in PILEUP_LOCI:
+        t0 = time.perf_counter()
+        frag = pileup_frags(loci)
+        what = f"dense pileup {loci} loci x 32"
+        print(f"# {what}: made in {time.perf_counter() - t0:.3f} s")
+        rows[what] = cluster_both_paths(what, frag, Config(), True, smi)
+    print("# clustering, device path against host path (s): " + "; ".join(
+        f"{w}: {r['edges']} edges, {r['device_s']:.6f} vs {r['host_s']:.6f}"
+        for w, r in rows.items()))
+
+    calls = []
+    device_path = tcluster.cluster_families_device
+
+    def spy(*args, **kw):
+        calls.append(str(args[7]))
+        return device_path(*args, **kw)
+
+    tcluster.cluster_families_device = spy
+    os.environ["REPKILLER_DEVICE_CLUSTER"] = "1"
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        frag = tdevice.compare(codes, None, HEADLINE_CFG, "cuda")
+        wall = time.perf_counter() - t0
+        counted = launches()
+    finally:
+        del os.environ["REPKILLER_DEVICE_CLUSTER"]
+        tcluster.cluster_families_device = device_path
+    check_same(frag, fused, "banded headline with REPKILLER_DEVICE_CLUSTER=1")
+    check(counted["banded"] > 0, f"the headline launched {counted}")
+    edges = rows["banded headline"]["edges"]
+    took = "device" if calls else "host"
+    check(took == ("device" if edges >= tcluster.DEVICE_MIN_EDGES else "host"),
+          f"REPKILLER_DEVICE_CLUSTER=1 took the {took} path at {edges} edges")
+    print(f"# banded headline with REPKILLER_DEVICE_CLUSTER=1: the {took} "
+          f"path ({edges} edges, threshold {tcluster.DEVICE_MIN_EDGES}); "
+          f"output equal to phase 5's field for field; wall {wall:.6f} s, "
+          f"launches {counted} on {smi}")
+
+
+def fasta_bytes(records: list, width: int = 80) -> bytes:
+    """(name, codes) records, none empty, as FASTA text, ``width`` bases a
+    line."""
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    out = []
+    for name, codes in records:
+        n = codes.shape[0]
+        rows = -(-n // width)
+        bases = np.zeros(rows * width, np.uint8)
+        bases[:n] = letters[codes]
+        grid = np.full((rows, width + 1), ord("\n"), np.uint8)
+        grid[:, :width] = bases.reshape(rows, width)
+        # n bases and a newline after every full line, then the last one
+        out += [b">" + name.encode() + b"\n",
+                grid.reshape(-1)[: n + rows - 1].tobytes() + b"\n"]
+    return b"".join(out)
+
+
+def median_time(fn, reps: int = 3):
+    """(median seconds of ``reps`` calls, the last call's result)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times, out
+
+
+def phase_native_io(codes4: np.ndarray, pair_frag: dict, smi: str) -> None:
+    """Phase 17: read_fasta through the native parser and through the numpy
+    parse on config #4 as a two-record FASTA; config #3's banded fragments
+    through the native and the Python CSV writers."""
+    check(native.available(), "the native I/O library is not available")
+    half = CONFIG4_SIZE // 2
+    records = [("2L", codes4[:half]), ("2R", codes4[half + 1:])]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config4.fa")
+        t0 = time.perf_counter()
+        Path(path).write_bytes(fasta_bytes(records))
+        print(f"# config #4 as FASTA: {os.path.getsize(path)} bytes written in "
+              f"{time.perf_counter() - t0:.3f} s")
+        nat_s, nat_all, got = median_time(lambda: tfasta.read_fasta(path))
+        npy_s, npy_all, want = median_time(lambda: tfasta.parse_numpy(
+            Path(path).read_bytes(), path=path))
+        check(got.names == want.names == ["2L", "2R"] and got.path == want.path
+              and all(np.array_equal(getattr(got, f), getattr(want, f))
+                      and getattr(got, f).dtype == getattr(want, f).dtype
+                      for f in ("codes", "offsets", "lengths")),
+              "config #4: the native and numpy FASTA parses differ")
+        check(np.array_equal(got.record(0), records[0][1])
+              and np.array_equal(got.record(1), records[1][1]),
+              "config #4: the parsed records differ from the genome")
+        print(f"# read_fasta of config #4 ({got.total_length} codes, records "
+              f"{got.lengths.tolist()}): native {nat_s:.6f} s "
+              f"{[round(t, 6) for t in nat_all]}, numpy {npy_s:.6f} s "
+              f"{[round(t, 6) for t in npy_all]}; equal SeqSets on {smi}")
+
+        n = int(pair_frag["xStart"].shape[0])
+        kw = dict(x_name="strainA", y_name="strainB", x_len=PAIR_SIZE,
+                  y_len=PAIR_SIZE + 5000, total_hits=sum(PAIR_HITS))
+        nat_csv, py_csv = os.path.join(tmp, "native.csv"), os.path.join(tmp, "py.csv")
+
+        def python_writer():
+            with open(py_csv, "w") as f:
+                csv_writer.write_frags_csv(pair_frag, f, **kw)
+
+        nat_s, nat_all, _ = median_time(
+            lambda: csv_writer.write_frags_csv(pair_frag, nat_csv, **kw))
+        py_s, py_all, _ = median_time(python_writer)
+        data = Path(nat_csv).read_bytes()
+        check(data == Path(py_csv).read_bytes(),
+              "config #3: the native and Python CSV writers differ")
+        check(data.count(b"\nFrag,") == n, "config #3: CSV rows")
+        print(f"# write_frags_csv of config #3 banded ({n} fragments, "
+              f"{len(data)} bytes): native {nat_s:.6f} s "
+              f"{[round(t, 6) for t in nat_all]}, Python {py_s:.6f} s "
+              f"{[round(t, 6) for t in py_all]}; equal bytes on {smi}")
 
 
 def main() -> int:
@@ -1224,9 +1447,17 @@ def main() -> int:
     phase_stage_timing()
     phase_sharded_headline(
         g.codes, {"banded": fused_banded, "ungapped": fused_ungapped}, smi)
-    phase_config2(smi)
-    phase_config4(smi, rate)
-    phase_config5(smi)
+    frag2 = phase_config2(smi)
+    codes4, frag4 = phase_config4(smi, rate)
+    frag5 = phase_config5(smi)
+    phase_clustering([
+        ("banded headline", fused_banded, HEADLINE_CFG, True),
+        ("config #3 banded", pair_frags["banded"], PAIR_CFG, False),
+        ("config #2", frag2, BIG_CFG, True),
+        ("config #4", frag4, BIG_CFG, True),
+        ("config #5 at 0.25x", frag5, CONFIG5_CFG, True)], g.codes,
+        fused_banded, smi)
+    phase_native_io(codes4, pair_frags["banded"], smi)
     print(f"# chip_smoke phases took {time.perf_counter() - t_start:.3f} s")
 
     print(json.dumps({"kernels": [

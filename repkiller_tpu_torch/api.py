@@ -143,13 +143,14 @@ def compare(x: SeqLike, y: Optional[SeqLike] = None, cfg: Config = DEFAULT,
     return Result(frag=frag, cfg=cfg, x=xs, y=ys)
 
 
-def group_fragments(frags_csv, cfg: Config = DEFAULT, self_cmp: bool = True
-                    ) -> Dict[str, np.ndarray]:
-    """Read a fragments CSV, cluster it into repeat families on the host
-    and return the canonical-sorted fragment dict with a fresh "group"
-    column."""
+def group_fragments(frags_csv, cfg: Config = DEFAULT, self_cmp: bool = True,
+                    *, device="cuda") -> Dict[str, np.ndarray]:
+    """Read a fragments CSV, cluster it into repeat families and return the
+    canonical-sorted fragment dict with a fresh "group" column. The
+    clustering runs on the host unless families/cluster.py's device path
+    is requested (REPKILLER_DEVICE_CLUSTER=1), which runs on ``device``."""
     frag = csv_writer.read_frags_csv(frags_csv)
     frag.pop("_meta", None)
     frag = orc.canonical_sort(frag)
-    frag["group"] = cluster_families(frag, cfg, self_cmp)
+    frag["group"] = cluster_families(frag, cfg, self_cmp, device=device)
     return frag

@@ -308,5 +308,5 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
             f"frag capacity overflow ({n} fragments fill the array); "
             "raise Config.seed_capacity / Config.hit_capacity")
     frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
-    frag["group"] = cluster_families(frag, cfg, self_cmp)
+    frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
     return frag

@@ -343,5 +343,6 @@ def compare_sharded(codesX: np.ndarray, codesY: Optional[np.ndarray],
         raise ValueError("frag capacity overflow; raise "
                          "Config.seed_capacity / Config.hit_capacity")
     frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
-    frag["group"] = cluster_families(frag, cfg, self_cmp)
+    frag["group"] = cluster_families(frag, cfg, self_cmp,
+                                     device=mesh.devices[mesh.bodies[0]])
     return frag

@@ -191,6 +191,6 @@ def compare_streamed(codesX: np.ndarray, codesY: Optional[np.ndarray],
         raise ValueError("frag capacity overflow in final merge")
     frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
     timer.lap("merge")
-    frag["group"] = cluster_families(frag, cfg, self_cmp)
+    frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
     timer.lap("families")
     return frag

@@ -1,7 +1,7 @@
 """Vectorized repeat-family clustering (repkiller proper — SURVEY.md §2.1
 "Grouping heuristics"): the port's copy of repkiller_tpu/families/cluster.py,
-host path only. The reference's opt-in device propagation
-(REPKILLER_DEVICE_CLUSTER, JAX) has no counterpart here.
+with the reference's opt-in device propagation (families/device.py) on the
+run's torch device.
 
 Semantics are DEFINED by oracle.pipeline.cluster_families (sweep + union-
 find); this is the production implementation: numpy-vectorized edge
@@ -20,19 +20,40 @@ ratio-compatible: min(la,lb)*100 >= round(len_ratio*100)*max(la,lb).
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..oracle import pipeline as orc
+from .device import cluster_families_device
 
 
 EDGE_CHUNK = 1 << 22   # edges materialised at once (~64 MB of working set)
 
+# Edge-count bounds of the on-device propagation path (families/device.py),
+# the reference's. Its default is the host path everywhere: on a TPU v5e
+# the device path lost at every scale measured there. It is taken only on
+# request, by REPKILLER_DEVICE_CLUSTER=1 on a CUDA device or by
+# device_min_edges, and at most DEVICE_EDGE_CAP edges are materialised.
+DEVICE_MIN_EDGES = 1 << 18
+DEVICE_EDGE_CAP = 1 << 25
+
+
+def _device_cluster_enabled(device) -> bool:
+    """Opt-in only, read on every call; a CPU device never takes the
+    device path (the reference's CPU backend never does either)."""
+    if os.environ.get("REPKILLER_DEVICE_CLUSTER", "0") != "1":
+        return False
+    return torch.device(device).type == "cuda"
+
+
 def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
-    """Sorted interval table + per-interval neighbor ranges. Returns (fidx, counts, offs, lo,
-    lens, pct, total) in the (space, start, end, fidx) lex order."""
+    """Sorted interval table + per-interval neighbor ranges (shared by the
+    host-streamed and device paths). Returns (fidx, counts, offs, lo,
+    lens, pct, total, csum) in the (space, start, end, fidx) lex order."""
     space, start, end, fidx = orc._intervals_of(frag, self_cmp)
     order = np.lexsort((fidx, end, start, space))
     space, start, end, fidx = (space[order], start[order], end[order],
@@ -58,8 +79,9 @@ def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
 
 
 def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
-                     self_cmp: bool, edge_chunk: int = EDGE_CHUNK
-                     ) -> np.ndarray:
+                     self_cmp: bool, edge_chunk: int = EDGE_CHUNK,
+                     device_min_edges: int = DEVICE_MIN_EDGES, *,
+                     device="cuda") -> np.ndarray:
     """Family id per fragment = smallest member index (canonical order).
 
     Fragments MUST already be canonical_sort'ed (same contract as the
@@ -73,6 +95,12 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
     (the per-component minimum) for any edge processing order, so the
     result is bit-identical to the oracle's union-find for any chunk
     size.
+
+    The edges go to ``device`` (families/device.py) instead when the
+    table has between ``device_min_edges`` and DEVICE_EDGE_CAP edges, its
+    lengths times 100 fit int32, and either ``device_min_edges`` is 0 or
+    REPKILLER_DEVICE_CLUSTER=1 and ``device`` is a CUDA device. That path
+    gives the same labels; on a CUDA device without a GPU it raises.
     """
     n = frag["xStart"].shape[0]
     if n == 0:
@@ -80,6 +108,12 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
     fidx, counts, offs, lo, lens, pct, total, csum = _edge_ranges(
         frag, cfg, self_cmp)
     m = fidx.shape[0]
+
+    if (device_min_edges <= total <= DEVICE_EDGE_CAP
+            and int(lens.max(initial=0)) < (1 << 31) // 100
+            and (device_min_edges == 0 or _device_cluster_enabled(device))):
+        return cluster_families_device(n, fidx, counts, lo, lens, pct, total,
+                                       device)
 
     # source-interval chunk boundaries carrying ~edge_chunk edges each
     # (one hub interval with more neighbors than edge_chunk makes its

@@ -1,6 +1,7 @@
 """FASTA ingestion (SURVEY.md §1 L0, §2.2 "FASTA ingestion"); the port's copy
-of repkiller_tpu/io/fasta.py without its optional native parser: the numpy
-parse below gives the same codes.
+of repkiller_tpu/io/fasta.py. ``read_fasta`` parses with the native C++
+parser (io/native.py) when its library is available, else with
+``parse_numpy``; both give the same codes.
 
 Host-side reader: (multi-)FASTA -> ``SeqSet`` with concatenated uint8
 codes, per-record names/offsets/lengths. Records are concatenated with a
@@ -17,7 +18,7 @@ from typing import List, Union
 
 import numpy as np
 
-from . import codec
+from . import codec, native
 
 
 @dataclass
@@ -43,6 +44,22 @@ class SeqSet:
         pos = np.asarray(pos)
         ri = np.searchsorted(self.offsets, pos, side="right") - 1
         return ri, pos - self.offsets[ri]
+
+
+def _scan_names(data: bytes) -> List[str]:
+    """Record names in parse_numpy's order and semantics (headers only; an
+    implicit 'seq0' when sequence precedes the first header)."""
+    names: List[str] = []
+    for line in data.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith(b">"):
+            names.append(line[1:].split()[0].decode("ascii")
+                         if len(line) > 1 else f"seq{len(names)}")
+        elif not names:
+            names.append("seq0")
+    return names
 
 
 DEFAULT_SPACER = 32   # N codes between records: long enough that x-drop
@@ -73,6 +90,17 @@ def read_fasta(src: Union[str, bytes, io.IOBase],
             data = data.encode("ascii")
         path = getattr(src, "name", "")
 
+    # fast path: the native C++ parser (the same codes, offsets, lengths)
+    if native.available():
+        codes, offsets, lengths = native.parse_fasta(data, spacer)
+        return SeqSet(codes=codes, names=_scan_names(data),
+                      offsets=offsets, lengths=lengths, path=path)
+    return parse_numpy(data, spacer, path)
+
+
+def parse_numpy(data: bytes, spacer: int = DEFAULT_SPACER,
+                path: str = "") -> SeqSet:
+    """read_fasta's numpy parse of FASTA bytes (no native library)."""
     names: List[str] = []
     chunks: List[np.ndarray] = []
     offsets: List[int] = []

@@ -1,6 +1,7 @@
 """Fragment table CSV writer/reader (SURVEY.md §1 L5, §2.1 "Writers"); the
-port's copy of repkiller_tpu/report/csv_writer.py, without the optional
-native writer (the Python writer below gives the same bytes).
+port's copy of repkiller_tpu/report/csv_writer.py. A path destination of a
+single-record run is written by the native C++ writer (io/native.py) when
+its library is available; the Python writer below gives the same bytes.
 
 The GECKO/repkiller ecosystem exchanges fragments as a CSV with a header
 of sequence metadata followed by one `Frag,...` row per fragment
@@ -21,6 +22,8 @@ import io
 from typing import Dict, Optional, TextIO, Union
 
 import numpy as np
+
+from ..io import native
 
 FRAG_COLUMNS = (
     "xStart", "yStart", "xEnd", "yEnd", "strand", "block", "length",
@@ -96,7 +99,11 @@ def write_frags_csv(
     trip stays exact. A fragment is attributed to the record of its
     leftmost base (fragments cannot span the inter-record N spacer unless
     the spacer is shorter than an x-drop bridge — the reader restores
-    concat space exactly either way)."""
+    concat space exactly either way).
+
+    Path destinations go through the native C++ writer when available
+    (the same bytes); multi-record runs use the Python path (per-row
+    record ids)."""
     if coords not in ("concat", "record"):
         raise ValueError(f"coords must be 'concat' or 'record', got {coords!r}")
     n = int(frag["xStart"].shape[0])
@@ -109,6 +116,9 @@ def write_frags_csv(
                             x_seqs=x_seqs, y_seqs=y_seqs, coords=coords)
     if coords == "record" and not multirec:
         coords = "concat"          # single record: identical coordinates
+    if isinstance(dst, str) and not multirec and native.available():
+        native.write_frags_csv(dst, header, frag, self_cmp)
+        return
     close = False
     if isinstance(dst, str):
         f = open(dst, "w")

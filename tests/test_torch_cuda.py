@@ -1,8 +1,9 @@
 """Tests of the torch port that need an NVIDIA GPU: kernels K1 and K2
-against their plain versions on the card, and the pipeline on the card
+against their plain versions on the card, the pipeline on the card
 (self and pairwise, banded and ungapped; fused, staged with resume,
 streamed, sharded on a one-process mesh and on a one-rank NCCL process
-mesh, and per-stage timing) against the CPU or device.compare.
+mesh, and per-stage timing) against the CPU or device.compare, and the
+device path of family clustering on the card against the host path.
 
 They skip where no GPU is visible; on a machine with one, run
     python -m pytest tests/test_torch_cuda.py -q
@@ -20,6 +21,8 @@ from repkiller_tpu_torch.dist.sharded import compare_sharded
 from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, ungapped
 from repkiller_tpu_torch.extend.banded import direction_plain
+from repkiller_tpu_torch.families import cluster as tcluster
+from repkiller_tpu_torch.oracle import pipeline as torc
 from repkiller_tpu_torch.utils import synth
 from repkiller_tpu_torch.utils.metrics import profile_stages
 
@@ -471,3 +474,84 @@ def test_sharded_nccl_process_mesh_matches_local_mesh(gpu):
         dist.destroy_process_group()
     for f in want:
         assert np.array_equal(got[f], want[f]), f
+
+
+def random_frags(n, seed, L=20000):
+    """tests/unit/test_families.py's random fragment table."""
+    rng = np.random.default_rng(seed)
+    ln = rng.integers(40, 400, n).astype(np.int32)
+    xs = rng.integers(0, L, n).astype(np.int32)
+    ys = rng.integers(0, L, n).astype(np.int32)
+    frag = {
+        "xStart": xs, "yStart": ys,
+        "xEnd": (xs + ln - 1).astype(np.int32),
+        "yEnd": (ys + ln - 1).astype(np.int32),
+        "strand": rng.integers(0, 2, n).astype(np.int32),
+        "length": ln,
+        "score": rng.integers(0, 2000, n).astype(np.int32),
+        "idents": (ln * 0.9).astype(np.int32),
+    }
+    return torc.canonical_sort(frag)
+
+
+def pileup_frags():
+    """tests/unit/test_families.py's 600-fragment pileup: chain components
+    split by the ratio filter (clustered with proximity 50)."""
+    rng = np.random.default_rng(12)
+    n = 600
+    xs = np.sort(rng.integers(0, 3000, n)).astype(np.int32)
+    ln = np.where(np.arange(n) % 3 == 0, 80, 400).astype(np.int32)
+    frag = {
+        "xStart": xs, "yStart": xs + 7,
+        "xEnd": (xs + ln - 1).astype(np.int32),
+        "yEnd": (xs + 6 + ln).astype(np.int32),
+        "strand": np.zeros(n, np.int32),
+        "length": ln,
+        "score": np.full(n, 100, np.int32),
+        "idents": np.full(n, 90, np.int32),
+    }
+    return torc.canonical_sort(frag)
+
+
+CLUSTER_CONFIGS = [Config(), Config(proximity=100, len_ratio=0.0),
+                   Config(proximity=5, len_ratio=0.9),
+                   Config(proximity=5, len_ratio=0.97)]
+
+
+@pytest.mark.parametrize("seed,n,self_cmp", [
+    (7, 300, True), (8, 800, False), (9, 0, True), (10, 5000, True),
+])
+def test_device_clustering_on_card_matches_host(gpu, seed, n, self_cmp):
+    frag = random_frags(n, seed)
+    for cfg in CLUSTER_CONFIGS:
+        host = tcluster.cluster_families(frag, cfg, self_cmp, device="cpu")
+        got = tcluster.cluster_families(frag, cfg, self_cmp,
+                                        device_min_edges=0, device=gpu)
+        assert got.dtype == np.int32 and np.array_equal(got, host)
+
+
+def test_device_clustering_on_card_dense_pileup(gpu):
+    frag, cfg = pileup_frags(), Config(proximity=50)
+    got = tcluster.cluster_families(frag, cfg, True, device_min_edges=0,
+                                    device=gpu)
+    assert np.array_equal(got, torc.cluster_families(frag, cfg, True))
+
+
+def test_env_switch_clusters_on_the_card(gpu, monkeypatch):
+    """REPKILLER_DEVICE_CLUSTER=1 sends a table in range to the card;
+    unset, the host path runs; both give the same labels."""
+    frag, cfg = random_frags(5000, 10), Config(proximity=5, len_ratio=0.9)
+    calls = []
+    device_path = tcluster.cluster_families_device
+
+    def spy(*args, **kw):
+        calls.append(torch.device(args[7]).type)
+        return device_path(*args, **kw)
+
+    monkeypatch.setattr(tcluster, "cluster_families_device", spy)
+    monkeypatch.delenv("REPKILLER_DEVICE_CLUSTER", raising=False)
+    host = tcluster.cluster_families(frag, cfg, True, device=gpu)
+    assert calls == []
+    monkeypatch.setenv("REPKILLER_DEVICE_CLUSTER", "1")
+    got = tcluster.cluster_families(frag, cfg, True, device=gpu)
+    assert calls == ["cuda"] and np.array_equal(got, host)
