@@ -1,0 +1,100 @@
+"""One genome job through the program, as a batch annotation pipeline runs
+it: read the FASTA, compare, cluster families, write every output file.
+The steps mirror the program's ``cli run``; each is a call into one of
+the program's layers. This module is the only one of the benchmark that
+imports the program.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Optional
+
+import torch
+
+from repkiller_tpu_torch import api, device as rk_device
+from repkiller_tpu_torch.config import Config
+from repkiller_tpu_torch.dist import sharded as rk_sharded
+from repkiller_tpu_torch.dist.mesh import make_mesh
+from repkiller_tpu_torch.io.fasta import read_fasta
+
+SUFFIXES = ("frags.csv", "families.csv", "repeats.bed", "masked.fasta")
+
+
+class Spans:
+    """Host seconds per span name, summed over the jobs (``on`` false:
+    nothing is recorded). Each span is also a ``torch.profiler`` range
+    named ``rkbench.<name>``, so a trace can tell what the host was doing
+    while the device idled."""
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.total = defaultdict(float)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if not self.on:
+            yield
+            return
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"rkbench.{name}"):
+            try:
+                yield
+            finally:
+                self.total[name] += time.perf_counter() - t0
+
+
+def install_family_span(spans: Spans):
+    """Wrap the name ``cluster_families`` that the single-device and the
+    sharded pipelines call, so that each call is a "families" span ->
+    a function that takes the wrapper out again."""
+    orig = rk_device.cluster_families
+
+    def traced(*args, **kwargs):
+        with spans("families"):
+            return orig(*args, **kwargs)
+
+    rk_device.cluster_families = rk_sharded.cluster_families = traced
+
+    def remove():
+        rk_device.cluster_families = rk_sharded.cluster_families = orig
+    return remove
+
+
+class Job:
+    """The program's side of a cell: its Config, backend and mesh."""
+
+    def __init__(self, config: dict, settings: dict, device: str):
+        self.cfg = Config(**settings)
+        self.backend = config["backend"]
+        self.mask = config["mask"]
+        self.device = device
+        mesh = config["mesh"]
+        self.mesh = (make_mesh(mesh["n_data"], mesh["n_shard"],
+                               devices=[device] * mesh["n_data"] * mesh["n_shard"])
+                     if self.backend == "sharded" else None)
+
+    def run(self, path: str, prefix: str, spans: Spans,
+            stages: Optional[dict] = None):
+        """One job -> its fragment table. ``stages`` (a dict; device
+        backend) gathers the pipeline's own stage walls."""
+        with spans("fasta_read"):
+            seqs = read_fasta(path)
+        with spans("compare"):
+            if stages is not None:
+                frag = rk_device.compare(seqs.codes, None, self.cfg,
+                                         self.device, timings=stages)
+                res = api.Result(frag=frag, cfg=self.cfg, x=seqs)
+            else:
+                res = api.compare(seqs, None, self.cfg, backend=self.backend,
+                                  device=self.device, mesh=self.mesh)
+        with spans("write"):
+            res.write_csv(prefix + ".frags.csv")
+            res.write_family_summary(prefix + ".families.csv")
+            res.write_intervals(prefix + ".repeats.bed")
+            if self.mask:
+                with open(prefix + ".masked.fasta", "w") as f:
+                    f.write(res.masked_fasta())
+        return res.frag
