@@ -143,7 +143,7 @@ from repkiller_tpu_torch.families import cluster as tcluster, cluster_families
 from repkiller_tpu_torch.io import fasta as tfasta, native
 from repkiller_tpu_torch.oracle import pipeline as orc
 from repkiller_tpu_torch.report import csv_writer, intervals as report_iv
-from repkiller_tpu_torch.utils import synth
+from repkiller_tpu_torch.utils import synth, trace
 from repkiller_tpu_torch.utils.capacity import grow_capacity, with_auto_capacity
 from repkiller_tpu_torch.utils.scan import partition_live
 
@@ -221,7 +221,6 @@ K1_SCORES = [(4, -4, 8, 0, 40), (4, -4, 60, 2, 40), (1, -3, 5, 2, 20),
 K2_SCORES = [(4, -4, 20), (1000, -3000, 15000), (4, -4, 2**31 - 1),
              (1000, -3000, 2**31 - 1)]
 SLEEP_CYCLES = 200_000_000  # about 0.1 s at the H100's 1.98 GHz
-KERNELS = {"banded": _cuda.banded_gotoh, "ungapped": _cuda.ungapped_xdrop}
 # Bounds. K1 does about 30 int32 operations (adds, compares, selects,
 # maxes) per band cell per row a seed runs, K2 about 12 per step; both run
 # on the SMs' INT32 lanes, 64 per SM per clock. Bytes: each input read
@@ -314,13 +313,21 @@ def make_strain_pair(size: int, seed: int):
     return a, b
 
 
+LAUNCH_COUNTERS = {"banded": "k1_launches", "ungapped": "k2_launches"}
+_launch_base = {}
+
+
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    totals = trace.totals()
+    _launch_base.update({mode: totals.get(c, 0)
+                         for mode, c in LAUNCH_COUNTERS.items()})
 
 
 def launches() -> dict:
-    return {mode: fn.launches for mode, fn in KERNELS.items()}
+    """Each kernel's launches since reset_launches, from the trace."""
+    totals = trace.totals()
+    return {mode: totals.get(c, 0) - _launch_base.get(mode, 0)
+            for mode, c in LAUNCH_COUNTERS.items()}
 
 
 def kernel_args(cfg: Config, E: int, jcap: int, base_off: int, step: int):
@@ -703,9 +710,7 @@ def phase_k1_headline_sets(cx: torch.Tensor, smi: str, rate: float):
 
 def record_launches(name: str, run):
     """Call ``run()`` with the kernel wrapper ``_cuda.<name>`` recording its
-    arguments -> (the wrapper, the recorded argument tuples). The wrapper
-    counts into the module attribute of its name, which is the recorder
-    while it stands in: these launches are not a counted run."""
+    arguments -> (the wrapper, the recorded argument tuples)."""
     kernel = getattr(_cuda, name)
     recorded = []
 
@@ -713,7 +718,6 @@ def record_launches(name: str, run):
         recorded.append(args)
         return kernel(*args)
 
-    recording.launches = 0
     setattr(_cuda, name, recording)
     try:
         run()
@@ -1239,13 +1243,14 @@ def cluster_both_paths(what: str, frag: dict, cfg: Config, self_cmp: bool,
         host = cluster_families(frag, cfg, self_cmp, device_min_edges=1 << 62,
                                 device="cuda")
         host_s.append(time.perf_counter() - t0)
-    stats = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    got = tcluster.cluster_families_device(n, fidx, counts, lo, lens, pct,
-                                           total, "cuda", stats)
+    with trace.span("families.propagate") as sid:
+        got = tcluster.cluster_families_device(n, fidx, counts, lo, lens,
+                                               pct, total, "cuda")
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    stats = next(s["counters"] for s in trace.spans() if s["id"] == sid)
     check(np.array_equal(got, host), f"{what}: device labels differ")
     for _ in range(3):
         torch.cuda.synchronize()

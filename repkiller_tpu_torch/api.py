@@ -23,6 +23,7 @@ from .families import cluster_families
 from .io import codec, fasta
 from .oracle import pipeline as orc
 from .report import csv_writer, intervals as report_iv
+from .utils import trace
 
 SeqLike = Union[str, bytes, np.ndarray, fasta.SeqSet]
 
@@ -86,13 +87,17 @@ class Result:
         return report_iv.write_family_summary(self.frag, dst)
 
     def masked_codes(self, space: int = 0) -> np.ndarray:
-        iv = self.repeat_intervals()
+        iv = self.repeat_intervals().get(space)
+        trace.count("intervals", 0 if iv is None else len(iv))
         src = self.x.codes if space == 0 else (self.y or self.x).codes
-        return report_iv.mask_codes(src, iv.get(space))
+        return report_iv.mask_codes(src, iv)
 
+    @trace.traced("report.masked_fasta")
     def masked_fasta(self, space: int = 0) -> str:
         """Hard-masked FASTA — one record per input record (multi-record
-        SeqSets round-trip; inter-record N spacers are not emitted)."""
+        SeqSets round-trip; inter-record N spacers are not emitted). Each
+        call is a "report.masked_fasta" trace span that counts the
+        ``intervals`` masked and the ``bytes`` of the text."""
         seqs = self.x if space == 0 else (self.y or self.x)
         masked = self.masked_codes(space)
         out = []
@@ -105,7 +110,9 @@ class Result:
             name = seqs.names[r] if seqs.names else "seq0"
             lines = [body[i : i + 70] for i in range(0, len(body), 70)]
             out.append(">%s masked\n%s\n" % (name, "\n".join(lines)))
-        return "".join(out)
+        text = "".join(out)
+        trace.count("bytes", len(text))
+        return text
 
 
 def compare(x: SeqLike, y: Optional[SeqLike] = None, cfg: Config = DEFAULT,

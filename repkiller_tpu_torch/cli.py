@@ -10,9 +10,12 @@ on the CPU):
   group  fragments CSV -> family-annotated CSV, summary and intervals
 
 Flags map 1:1 onto Config fields. ``--profile DIR`` writes a
-torch.profiler trace to DIR/trace.json; ``--keep-intermediates DIR``
-dumps each stage's arrays and resumes from them; ``--stage-timing`` also
-prints per-stage JSONL timings.
+torch.profiler trace of the comparison and the writes to DIR/trace.json,
+the program's trace spans among them as ``repkiller.*`` ranges;
+``--keep-intermediates DIR`` dumps each stage's arrays and resumes from
+them; ``--stage-timing`` also prints per-stage JSONL timings. The metrics
+line's "spans" holds the host seconds of the run's trace spans
+(utils/trace.py) by name.
 
 ``--backend sharded`` runs the (data, shard) mesh pipeline. Across
 processes: ``--num-processes N --process-id i --coordinator host:port``,
@@ -34,12 +37,14 @@ import logging
 import os
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 
 from . import api
 from .config import Config
 from .report import csv_writer, intervals as report_iv
+from .utils import trace
 from .utils.capacity import grow_capacity
 from .utils.metrics import profile_stages
 
@@ -188,10 +193,22 @@ def cmd_run(args: argparse.Namespace) -> int:
         from .dist.mesh import make_mesh
         mesh = make_mesh(devices=[args.device] * args.host_devices)
     src_x = sys.stdin.read() if args.fasta_x == "-" else args.fasta_x
-    t0 = time.perf_counter()
+    from .dist.merge import is_output_host, write_on_host0
+
+    prefix = args.out_prefix
+
+    def _write_all():
+        res.write_csv(prefix + ".frags.csv", coords=args.coords)
+        res.write_family_summary(prefix + ".families.csv")
+        res.write_intervals(prefix + ".repeats.bed")
+        if args.mask:
+            with open(prefix + ".masked.fasta", "w") as f:
+                f.write(res.masked_fasta())
+
     profile_ctx = (_profiled(args.profile, args.device) if args.profile
                    else contextlib.nullcontext())
-    with profile_ctx:
+    with profile_ctx, trace.job() as job_id:
+        t0 = time.perf_counter()
         for attempt in range(args.auto_capacity + 1):
             try:
                 res = api.compare(src_x, args.fasta_y, cfg,
@@ -206,21 +223,8 @@ def cmd_run(args: argparse.Namespace) -> int:
                 log.warning("%s — retrying with %s (attempt %d/%d)",
                             e, grown[1], attempt + 1, args.auto_capacity)
                 cfg = grown[0]
-    dt = time.perf_counter() - t0
-
-    from .dist.merge import is_output_host, write_on_host0
-
-    prefix = args.out_prefix
-
-    def _write_all():
-        res.write_csv(prefix + ".frags.csv", coords=args.coords)
-        res.write_family_summary(prefix + ".families.csv")
-        res.write_intervals(prefix + ".repeats.bed")
-        if args.mask:
-            with open(prefix + ".masked.fasta", "w") as f:
-                f.write(res.masked_fasta())
-
-    write_on_host0(_write_all)
+        dt = time.perf_counter() - t0
+        write_on_host0(_write_all)
 
     if args.stage_timing:
         profile_stages(res.x.codes, None if res.self_cmp else res.y.codes,
@@ -231,7 +235,7 @@ def cmd_run(args: argparse.Namespace) -> int:
         "stage": "run", "wall_s": round(dt, 4), "bp": bp,
         "bp_per_s": round(bp / dt, 1),
         "fragments": res.n_fragments, "families": res.n_families,
-        "backend": args.backend,
+        "backend": args.backend, "spans": job_spans(job_id),
     }
     log.info("run: %s", metrics)
     if is_output_host():
@@ -240,6 +244,15 @@ def cmd_run(args: argparse.Namespace) -> int:
             with open(args.metrics_json, "a") as f:
                 f.write(json.dumps(metrics) + "\n")
     return 0
+
+
+def job_spans(job_id: int) -> dict:
+    """Host seconds by span name over the trace spans of job ``job_id``."""
+    secs = defaultdict(float)
+    for s in trace.spans():
+        if s["job"] == job_id:
+            secs[s["name"]] += s["t1"] - s["t0"]
+    return {name: round(v, 6) for name, v in sorted(secs.items())}
 
 
 def cmd_group(args: argparse.Namespace) -> int:

@@ -16,6 +16,7 @@ resume from them (utils/checkpoint.StageStore, ``keep_intermediates``).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -32,6 +33,7 @@ from .oracle import pipeline as orc
 from .seeds.filter import filter_hits
 from .seeds.join import join_hits
 from .seeds.self_join import join_self_canonical
+from .utils import trace
 from .utils.checkpoint import StageStore, fingerprint
 
 
@@ -100,25 +102,26 @@ def merge_strands(frags, valids, y_len: int, cfg: Config):
 
 
 class StageTimer:
-    """Wall seconds per stage into ``timings`` (None: not kept), each stage
-    ended by a synchronisation of ``dev`` when it is a GPU."""
+    """``with timer(name):`` runs one stage as a trace span on ``dev``
+    (utils/trace.py: host and device time, never a synchronisation) and,
+    with ``timings`` (a dict; None: not kept), adds the stage's wall
+    seconds under ``name``, the stage then ended by a synchronisation of
+    ``dev`` when it is a GPU."""
 
     def __init__(self, timings: Optional[dict], dev: torch.device):
         self.timings = timings
         self.dev = dev
-        self.t = time.perf_counter()
 
-    def start(self) -> None:
-        self.t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.timings is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        t1 = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + t1 - self.t
-        self.t = t1
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        with trace.span(name, device=self.dev):
+            yield
+            if self.timings is not None and self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+        if self.timings is not None:
+            self.timings[name] = (self.timings.get(name, 0.0)
+                                  + time.perf_counter() - t0)
 
 
 def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
@@ -127,26 +130,27 @@ def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
     their device -> (frag, n_frags, total_hits, n_seeds), all tensors.
     ``timings`` (optional dict) gathers wall seconds per stage ("seeds",
     "extend", "merge"), each ended by a device synchronisation."""
-    stages = StageTimer(timings, cx.device)
+    stage = StageTimer(timings, cx.device)
     self_cmp = cy is None
     cy = cx if self_cmp else cy
-    ys = {strand: cy if strand == 0 else revcomp_device(cy)
-          for strand in (0, 1) if "fr"[strand] in cfg.strands}
-    if self_cmp:
-        seeds = self_seeds_fn(cx, cfg)
-    else:
-        idx_x = build_index(cx, cfg.k)
-        seeds = {strand: pair_seeds_fn(idx_x, y, cfg) for strand, y in ys.items()}
-    stages.lap("seeds")
+    with stage("seeds"):
+        ys = {strand: cy if strand == 0 else revcomp_device(cy)
+              for strand in (0, 1) if "fr"[strand] in cfg.strands}
+        if self_cmp:
+            seeds = self_seeds_fn(cx, cfg)
+        else:
+            idx_x = build_index(cx, cfg.k)
+            seeds = {strand: pair_seeds_fn(idx_x, y, cfg)
+                     for strand, y in ys.items()}
     frags, valids = [], []
-    for strand, (spx, spy, sv, n_seeds, _) in seeds.items():
-        frag, fv = extend_strand(spx, spy, sv, n_seeds, cx, ys[strand], cfg,
-                                 strand)
-        frags.append(frag)
-        valids.append(fv)
-    stages.lap("extend")
-    out, _, n_frags = merge_strands(frags, valids, cy.shape[0], cfg)
-    stages.lap("merge")
+    with stage("extend"):
+        for strand, (spx, spy, sv, n_seeds, _) in seeds.items():
+            frag, fv = extend_strand(spx, spy, sv, n_seeds, cx, ys[strand],
+                                     cfg, strand)
+            frags.append(frag)
+            valids.append(fv)
+    with stage("merge"):
+        out, _, n_frags = merge_strands(frags, valids, cy.shape[0], cfg)
     return (out, n_frags, torch.stack([s[4] for s in seeds.values()]),
             torch.stack([s[3] for s in seeds.values()]))
 
@@ -165,7 +169,7 @@ def compare_staged(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
     ("extend{strand}") and reloads them on a rerun with the same
     fingerprint, so a stage that is reloaded is not timed."""
     dev = cx.device
-    stages = StageTimer(timings, dev)
+    stage = StageTimer(timings, dev)
     self_cmp = cy is None
     cy_f = cx if self_cmp else cy
     strands = [s for s in (0, 1) if "fr"[s] in cfg.strands]
@@ -191,11 +195,10 @@ def compare_staged(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
         return None if z is None else (z, z.pop("fvalid"))
 
     def extend(strand, t5, cy_cmp, rev_y=False):
-        stages.start()
-        if rev_y:                 # strand r's revcomp, timed with its extension
-            cy_cmp = revcomp_device(cy_cmp)
-        frag, fv = extend_strand(*t5[:4], cx, cy_cmp, cfg, strand)
-        stages.lap("extend")
+        with stage("extend"):
+            if rev_y:             # strand r's revcomp, timed with its extension
+                cy_cmp = revcomp_device(cy_cmp)
+            frag, fv = extend_strand(*t5[:4], cx, cy_cmp, cfg, strand)
         if store is not None:
             store.save(f"extend{strand}", {
                 **{f: v.cpu().numpy() for f, v in frag.items()},
@@ -206,9 +209,8 @@ def compare_staged(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
     if self_cmp:
         seeds = {s: load_seeds(s) for s in strands}
         if any(v is None for v in seeds.values()):
-            stages.start()
-            seeds = self_seeds_fn(cx, cfg)
-            stages.lap("seeds")
+            with stage("seeds"):
+                seeds = self_seeds_fn(cx, cfg)
             for s, t5 in seeds.items():
                 save_seeds(s, t5)
         for strand, t5 in seeds.items():
@@ -224,30 +226,26 @@ def compare_staged(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
             if t5 is None or ext is None:
                 cy_cmp = cy_f
                 if strand == 1:
-                    stages.start()
-                    cy_cmp = revcomp_device(cy_f)
-                    stages.lap("revcomp")
+                    with stage("revcomp"):
+                        cy_cmp = revcomp_device(cy_f)
             if t5 is None:
                 if idx_x is None:
-                    stages.start()
-                    idx_x = build_index(cx, cfg.k)
-                    stages.lap("index_x")
-                stages.start()
-                idx_y = build_index(cy_cmp, cfg.k)
-                stages.lap("index_y")
-                hpx, hpy, hv, total = pair_join(idx_x, idx_y,
-                                                cy_cmp.shape[0], cfg)
-                stages.lap("join")
-                t5 = thin_hits(hpx, hpy, hv, cfg) + (total,)
-                stages.lap("filter")
+                    with stage("index_x"):
+                        idx_x = build_index(cx, cfg.k)
+                with stage("index_y"):
+                    idx_y = build_index(cy_cmp, cfg.k)
+                with stage("join"):
+                    hpx, hpy, hv, total = pair_join(idx_x, idx_y,
+                                                    cy_cmp.shape[0], cfg)
+                with stage("filter"):
+                    t5 = thin_hits(hpx, hpy, hv, cfg) + (total,)
                 save_seeds(strand, t5)
             if ext is None:
                 ext = extend(strand, t5, cy_cmp)
             frags.append(ext[0]), valids.append(ext[1])
             totals.append(t5[4]), nseeds.append(t5[3])
-    stages.start()
-    out, _, n_frags = merge_strands(frags, valids, cy_f.shape[0], cfg)
-    stages.lap("merge")
+    with stage("merge"):
+        out, _, n_frags = merge_strands(frags, valids, cy_f.shape[0], cfg)
     return out, n_frags, torch.stack(totals), torch.stack(nseeds)
 
 
@@ -285,28 +283,33 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
         frag = {f: np.zeros(0, np.int32) for f in orc.FRAG_FIELDS}
         frag["group"] = np.zeros(0, np.int32)
         return frag
-    cx = torch.from_numpy(codes_x.copy()).to(dev)
-    cy = None if self_cmp else torch.from_numpy(codes_y.copy()).to(dev)
-    store = (StageStore(keep_intermediates, fingerprint(codesX, codesY, cfg))
-             if keep_intermediates else None)
-    out, n_frags, total_hits, n_seeds = compare_staged(cx, cy, cfg, timings,
-                                                       store)
-
-    total_hits = total_hits.cpu().numpy()
-    if (total_hits > cfg.hit_capacity).any():
-        raise ValueError(
-            f"hit_capacity={cfg.hit_capacity} overflow: strand hit totals "
-            f"{total_hits.tolist()}; raise Config.hit_capacity")
-    n_seeds = n_seeds.cpu().numpy()
-    if (n_seeds > cfg.seed_cap).any():
-        raise ValueError(
-            f"seed_capacity={cfg.seed_cap} overflow: strand seed counts "
-            f"{n_seeds.tolist()}; raise Config.seed_capacity")
-    n = int(n_frags)
-    if n > 0 and n == out["xStart"].shape[0]:
-        raise ValueError(
-            f"frag capacity overflow ({n} fragments fill the array); "
-            "raise Config.seed_capacity / Config.hit_capacity")
-    frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
-    frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
+    with trace.span("compare", device=dev):
+        cx = torch.from_numpy(codes_x.copy()).to(dev)
+        cy = None if self_cmp else torch.from_numpy(codes_y.copy()).to(dev)
+        store = (StageStore(keep_intermediates,
+                            fingerprint(codesX, codesY, cfg))
+                 if keep_intermediates else None)
+        out, n_frags, total_hits, n_seeds = compare_staged(cx, cy, cfg,
+                                                           timings, store)
+        with trace.span("copy_out", device=dev):
+            total_hits = total_hits.cpu().numpy()
+            trace.count("hits", int(total_hits.sum()))
+            if (total_hits > cfg.hit_capacity).any():
+                raise ValueError(
+                    f"hit_capacity={cfg.hit_capacity} overflow: strand hit "
+                    f"totals {total_hits.tolist()}; raise Config.hit_capacity")
+            n_seeds = n_seeds.cpu().numpy()
+            trace.count("seeds", int(n_seeds.sum()))
+            if (n_seeds > cfg.seed_cap).any():
+                raise ValueError(
+                    f"seed_capacity={cfg.seed_cap} overflow: strand seed "
+                    f"counts {n_seeds.tolist()}; raise Config.seed_capacity")
+            n = int(n_frags)
+            if n > 0 and n == out["xStart"].shape[0]:
+                raise ValueError(
+                    f"frag capacity overflow ({n} fragments fill the array); "
+                    "raise Config.seed_capacity / Config.hit_capacity")
+            trace.count("fragments", n)
+            frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
+        frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
     return frag

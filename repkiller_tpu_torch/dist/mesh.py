@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import check_device
+from ..utils import trace
 
 DATA_AXIS = "data"
 SHARD_AXIS = "shard"
@@ -135,6 +136,12 @@ class Mesh:
         raise NotImplementedError
 
 
+def _count_bytes(vals: dict) -> None:
+    """The bytes handed to a collective, from the shapes: the trace's
+    ``collective_bytes``."""
+    trace.count("collective_bytes", sum(v.nbytes for v in vals.values()))
+
+
 def _axis_index(body: Body, axis: str) -> int:
     return body[0] if axis == DATA_AXIS else body[1]
 
@@ -155,6 +162,7 @@ class LocalMesh(Mesh):
         return [(d, j) for j in range(self.n_shard)]
 
     def all_to_all(self, vals: dict, axis: str) -> dict:
+        _count_bytes(vals)
         out = {}
         for b in self.bodies:
             peers = self._peers(b, axis)
@@ -164,6 +172,7 @@ class LocalMesh(Mesh):
         return out
 
     def all_gather(self, vals: dict, axis: str, tiled: bool = True) -> dict:
+        _count_bytes(vals)
         join = torch.cat if tiled else torch.stack
         return {b: join([vals[p].to(self.devices[b])
                          for p in self._peers(b, axis)])
@@ -194,6 +203,7 @@ class ProcessMesh(Mesh):
                 self.groups[SHARD_AXIS] = g
 
     def all_to_all(self, vals: dict, axis: str) -> dict:
+        _count_bytes(vals)
         x = vals[self.me]
         send = x.to(torch.int8) if x.dtype == torch.bool else x.contiguous()
         recv = torch.empty_like(send)
@@ -201,6 +211,7 @@ class ProcessMesh(Mesh):
         return {self.me: recv.to(x.dtype)}
 
     def all_gather(self, vals: dict, axis: str, tiled: bool = True) -> dict:
+        _count_bytes(vals)
         x = vals[self.me]
         send = x.to(torch.int8) if x.dtype == torch.bool else x.contiguous()
         n = self.n_data if axis == DATA_AXIS else self.n_shard

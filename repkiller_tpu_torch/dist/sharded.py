@@ -45,6 +45,7 @@ from ..oracle import pipeline as orc
 from ..seeds.filter import filter_hits
 from ..seeds.join import join_hits
 from ..seeds.self_join import join_self_canonical
+from ..utils import trace
 from .mesh import DATA_AXIS, SHARD_AXIS, Mesh, make_mesh
 
 
@@ -139,17 +140,21 @@ def _regroup_thin_extend(mesh: Mesh, hits: dict, cx: dict, cy_r: dict,
     B -> ([{body: (frag, valid, n_seeds)} per strand], the largest send
     block of any body)."""
     outs, cnt_max = [], []
+    dev = _first(mesh.devices)
     for strand in _strands(cfg):
-        packs = mesh.map(lambda b, h: _pack_by_window(*h[strand][:3], mesh.n_data,
-                                                      win, cap_b), hits)
-        sent = [mesh.all_to_all({b: p[i] for b, p in packs.items()}, DATA_AXIS)
-                for i in range(3)]
-        regrouped = {b: (sent[0][b].reshape(-1), sent[1][b].reshape(-1),
-                         sent[2][b].reshape(-1).bool()) for b in mesh.bodies}
-        cnt_max.append({b: p[3].reshape(1) for b, p in packs.items()})
-        outs.append(_thin_extend_window(
-            mesh, regrouped, cx, cx if strand == 0 else cy_r, cfg, strand,
-            win_seed_cap))
+        with trace.span("sharded.regroup", device=dev):
+            packs = mesh.map(lambda b, h: _pack_by_window(
+                *h[strand][:3], mesh.n_data, win, cap_b), hits)
+            sent = [mesh.all_to_all({b: p[i] for b, p in packs.items()},
+                                    DATA_AXIS) for i in range(3)]
+            regrouped = {b: (sent[0][b].reshape(-1), sent[1][b].reshape(-1),
+                             sent[2][b].reshape(-1).bool())
+                         for b in mesh.bodies}
+            cnt_max.append({b: p[3].reshape(1) for b, p in packs.items()})
+        with trace.span("sharded.extend", device=dev):
+            outs.append(_thin_extend_window(
+                mesh, regrouped, cx, cx if strand == 0 else cy_r, cfg, strand,
+                win_seed_cap))
     largest = max(int(mesh.gather_counts(c).max()) for c in cnt_max)
     return outs, largest
 
@@ -167,20 +172,28 @@ def _self_canonical_sharded(cx: dict, cfg: Config, mesh: Mesh, win: int,
     the window regroup and of the distributed build)."""
     n_data, n_shard = mesh.n_data, mesh.n_shard
     c0 = next(iter(cx.values()))
-    cy_r = mesh.replicate(revcomp_device(c0))
+    dev = _first(mesh.devices)
     cap_b = shard_capacity(cap_dev, n_data, cfg.shard_slack)
     blk_overs = []
     if mesh.size == 1:
         (b, c), = cx.items()
-        ci = build_canonical_index(c, cfg.k)
-        hits = mesh.map(_canon_self_body({b: ci}, cfg, c.shape[0], cap_dev,
-                                         ci.pos.shape[0], n_shard))
+        with trace.span("sharded.index", device=dev):
+            cy_r = mesh.replicate(revcomp_device(c0))
+            ci = build_canonical_index(c, cfg.k)
+        with trace.span("sharded.hits", device=dev):
+            hits = mesh.map(_canon_self_body({b: ci}, cfg, c.shape[0],
+                                             cap_dev, ci.pos.shape[0],
+                                             n_shard))
         shard_cnt = np.zeros(n_shard, np.int32)
     else:
-        built = build_canonical_dist(cx, cfg.k, cap_shard, mesh, cfg.shard_slack)
-        hits = mesh.map(_canon_self_body_dist(
-            {b: v[0] for b, v in built.items()}, cfg, c0.shape[0], cap_dev,
-            cap_shard // n_data))
+        with trace.span("sharded.index", device=dev):
+            cy_r = mesh.replicate(revcomp_device(c0))
+            built = build_canonical_dist(cx, cfg.k, cap_shard, mesh,
+                                         cfg.shard_slack)
+        with trace.span("sharded.hits", device=dev):
+            hits = mesh.map(_canon_self_body_dist(
+                {b: v[0] for b, v in built.items()}, cfg, c0.shape[0],
+                cap_dev, cap_shard // n_data))
         _, cnt, blk_build = _first(built)
         shard_cnt = cnt.cpu().numpy()
         blk_overs.append(blk_build.tolist())
@@ -199,12 +212,16 @@ def _one_strand_sharded(cx: dict, cx_pad: dict, idxX, cy_cmp: dict,
     a pairwise comparison: Y's index (of Y, or of revcomp(Y)) is built
     sharded here -> (stage-B outputs, {body: hit total}, Y's shard counts,
     Y's build blk_over or None)."""
-    idxY, blk_over = _build_idx(cy_cmp, cfg, mesh, cap_shard)
-    hits = mesh.map(lambda b, c, iy, ix: _window_join(
-        c, (iy[0], iy[1], iy[2][b[1]]), (ix[0], ix[2][b[1]]), b[0], win,
-        cap_dev, cfg), cx_pad, idxY, idxX)
-    out = _thin_extend_window(mesh, hits, cx, cy_cmp, cfg, strand,
-                              cfg.seed_cap // mesh.n_data)
+    dev = _first(mesh.devices)
+    with trace.span("sharded.index", device=dev):
+        idxY, blk_over = _build_idx(cy_cmp, cfg, mesh, cap_shard)
+    with trace.span("sharded.hits", device=dev):
+        hits = mesh.map(lambda b, c, iy, ix: _window_join(
+            c, (iy[0], iy[1], iy[2][b[1]]), (ix[0], ix[2][b[1]]), b[0], win,
+            cap_dev, cfg), cx_pad, idxY, idxX)
+    with trace.span("sharded.extend", device=dev):
+        out = _thin_extend_window(mesh, hits, cx, cy_cmp, cfg, strand,
+                                  cfg.seed_cap // mesh.n_data)
     return out, {b: h[3] for b, h in hits.items()}, _first(idxY)[2], blk_over
 
 
@@ -217,7 +234,8 @@ def _pairwise_sharded(cx: dict, cy: dict, cx_pad: dict, cfg: Config,
                       mesh: Mesh, win: int, cap_dev: int, cap_shard: int):
     """Both requested strands of a sharded pairwise comparison against X's
     sharded index -> as _self_canonical_sharded."""
-    idxX, blkX = _build_idx(cx, cfg, mesh, cap_shard)
+    with trace.span("sharded.index", device=_first(mesh.devices)):
+        idxX, blkX = _build_idx(cx, cfg, mesh, cap_shard)
     shard_cnts = [_first(idxX)[2]]
     blk_overs = [] if blkX is None else [_first(blkX)]
     outs, totals = [], []
@@ -298,51 +316,58 @@ def compare_sharded(codesX: np.ndarray, codesY: Optional[np.ndarray],
     # the canonical self path slices each shard's rows across the data axis
     cap_shard = -(-cap_shard // n_data) * n_data
 
-    cx = mesh.replicate(cx_np)
-    if self_cmp:
-        outs, totals, shard_cnts, blk_over = _self_canonical_sharded(
-            cx, cfg, mesh, win, cap_dev, cap_shard)
-    else:
-        outs, totals, shard_cnts, blk_over = _pairwise_sharded(
-            cx, mesh.replicate(cy_np), mesh.replicate(cx_pad_np), cfg, mesh,
-            win, cap_dev, cap_shard)
-    out, n_frags = _stage_c(mesh, outs, cy_np.shape[0], cfg)
-
-    # every counter on every process before any check raises
-    n_str = len(outs)
-    counts = mesh.gather_counts({
-        b: torch.cat([totals[b], torch.stack([o[b][2] for o in outs])]
-                     ).to(torch.int64) for b in mesh.bodies})
-    totals, nseeds = counts[:, :n_str], counts[:, n_str:]
-    blk_over = np.asarray(blk_over)
-    win_seed_cap = cfg.seed_cap // n_data
-    if (shard_cnts > cap_shard).any():
-        raise ValueError(
-            f"index shard capacity {cap_shard} overflow (max shard "
-            f"{int(shard_cnts.max())} entries — skewed k-mer prefixes); "
-            "raise Config.shard_slack")
-    # hit-capacity overflow is checked before block skew: when the
-    # expansion itself overflowed, the skewed send blocks are a consequence
-    if (totals > cap_dev).any():
-        raise ValueError(
-            f"per-device hit capacity {cap_dev} overflow (max block "
-            f"{int(totals.max())}); raise Config.hit_capacity")
-    if (blk_over[:, 0] > blk_over[:, 1]).any():
-        raise ValueError(
-            f"shuffle block overflow (max block "
-            f"{int(blk_over[:, 0].max())} entries > cap "
-            f"{int(blk_over[:, 1].max())} — chunk-local k-mer prefix or "
-            "window-destination skew); raise Config.shard_slack")
-    if (nseeds > win_seed_cap).any():
-        raise ValueError(
-            f"per-window seed capacity {win_seed_cap} (= seed_capacity "
-            f"{cfg.seed_cap} / {n_data} windows) overflow: max window "
-            f"seed count {int(nseeds.max())}; raise Config.seed_capacity")
-    n = int(n_frags)
-    if n > 0 and n == out["xStart"].shape[0]:
-        raise ValueError("frag capacity overflow; raise "
-                         "Config.seed_capacity / Config.hit_capacity")
-    frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
-    frag["group"] = cluster_families(frag, cfg, self_cmp,
-                                     device=mesh.devices[mesh.bodies[0]])
+    dev = _first(mesh.devices)
+    with trace.span("compare", device=dev):
+        cx = mesh.replicate(cx_np)
+        if self_cmp:
+            outs, totals, shard_cnts, blk_over = _self_canonical_sharded(
+                cx, cfg, mesh, win, cap_dev, cap_shard)
+        else:
+            outs, totals, shard_cnts, blk_over = _pairwise_sharded(
+                cx, mesh.replicate(cy_np), mesh.replicate(cx_pad_np), cfg,
+                mesh, win, cap_dev, cap_shard)
+        with trace.span("sharded.merge", device=dev):
+            out, n_frags = _stage_c(mesh, outs, cy_np.shape[0], cfg)
+        with trace.span("sharded.copy_out", device=dev):
+            # every counter on every process before any check raises
+            n_str = len(outs)
+            counts = mesh.gather_counts({
+                b: torch.cat([totals[b], torch.stack([o[b][2] for o in outs])]
+                             ).to(torch.int64) for b in mesh.bodies})
+            totals, nseeds = counts[:, :n_str], counts[:, n_str:]
+            trace.count("hits", int(totals.sum()))
+            trace.count("seeds", int(nseeds.sum()))
+            blk_over = np.asarray(blk_over)
+            win_seed_cap = cfg.seed_cap // n_data
+            if (shard_cnts > cap_shard).any():
+                raise ValueError(
+                    f"index shard capacity {cap_shard} overflow (max shard "
+                    f"{int(shard_cnts.max())} entries — skewed k-mer "
+                    "prefixes); raise Config.shard_slack")
+            # hit-capacity overflow is checked before block skew: when the
+            # expansion itself overflowed, the skewed send blocks are a
+            # consequence
+            if (totals > cap_dev).any():
+                raise ValueError(
+                    f"per-device hit capacity {cap_dev} overflow (max block "
+                    f"{int(totals.max())}); raise Config.hit_capacity")
+            if (blk_over[:, 0] > blk_over[:, 1]).any():
+                raise ValueError(
+                    f"shuffle block overflow (max block "
+                    f"{int(blk_over[:, 0].max())} entries > cap "
+                    f"{int(blk_over[:, 1].max())} — chunk-local k-mer prefix "
+                    "or window-destination skew); raise Config.shard_slack")
+            if (nseeds > win_seed_cap).any():
+                raise ValueError(
+                    f"per-window seed capacity {win_seed_cap} (= "
+                    f"seed_capacity {cfg.seed_cap} / {n_data} windows) "
+                    f"overflow: max window seed count {int(nseeds.max())}; "
+                    "raise Config.seed_capacity")
+            n = int(n_frags)
+            if n > 0 and n == out["xStart"].shape[0]:
+                raise ValueError("frag capacity overflow; raise "
+                                 "Config.seed_capacity / Config.hit_capacity")
+            trace.count("fragments", n)
+            frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
+        frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
     return frag

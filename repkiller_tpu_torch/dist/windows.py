@@ -25,6 +25,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,6 +37,7 @@ from ..device import (StageTimer, check_device, extend_strand,
 from ..families import cluster_families
 from ..index.build import build_index
 from ..oracle import pipeline as orc
+from ..utils import trace
 
 _SAVE_FIELDS = ("xStart", "yStart", "xEnd", "yEnd", "strand", "length",
                 "score", "idents")
@@ -113,84 +115,87 @@ def compare_streamed(codesX: np.ndarray, codesY: Optional[np.ndarray],
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
-    timer = StageTimer(stats, dev)
-    dcx = torch.from_numpy(cx.copy()).to(dev)
-    dcx_pad = torch.from_numpy(cx_pad).to(dev)
-    dcy = dcx if self_cmp else torch.from_numpy(cy.copy()).to(dev)
-    strands = [s for s in (0, 1) if "fr"[s] in cfg.strands]
-    idxX = build_index(dcx, cfg.k)
-    idxX_occ = (idxX[0], idxX[2])
-    timer.lap("index")
-    if stats is not None:
-        stats["windows"] = n_win
-        stats["hit_totals"] = [0] * len(strands)
-        stats["seed_counts"] = [0] * len(strands)
-    frags, valids = [], []
-    for si, strand in enumerate(strands):
-        timer.start()
-        if strand == 0:
-            cy_cmp = dcy
-            idxY = idxX if self_cmp else build_index(cy_cmp, cfg.k)
-            self_mode = "f" if self_cmp else None
-        else:
-            cy_cmp = revcomp_device(dcy)
-            idxY = build_index(cy_cmp, cfg.k)
-            self_mode = "r" if self_cmp else None
-        timer.lap("index")
-        for w in range(n_win):
-            key = (w, strand)
-            if key in done:
-                timer.start()
-                with np.load(os.path.join(out_dir, done[key])) as z:
-                    frags.append({f: torch.from_numpy(z[f]).to(dev)
-                                  for f in _SAVE_FIELDS})
-                    valids.append(torch.from_numpy(z["valid"]).to(dev))
-                timer.lap("io")
-                continue
-            timer.start()
-            spx, spy, sv, n_seeds, total = _window_seeds(
-                dcx_pad, cy_cmp.shape[0], idxY, idxX_occ, w * win, cfg,
-                self_mode, win)
-            total, n_seeds_h = int(total), int(n_seeds)
-            if total > cfg.hit_capacity:
-                raise ValueError(
-                    f"window {w} strand {strand}: {total} hits exceed "
-                    f"hit_capacity {cfg.hit_capacity}; shrink window or "
-                    "raise capacity")
-            if n_seeds_h > cfg.seed_cap:
-                raise ValueError(
-                    f"window {w} strand {strand}: {n_seeds_h} seeds "
-                    f"exceed seed_capacity {cfg.seed_cap}; shrink window "
-                    "or raise Config.seed_capacity")
-            timer.lap("seeds")
-            frag, valid = extend_strand(spx, spy, sv, n_seeds, dcx, cy_cmp,
-                                        cfg, strand)
-            frags.append(frag)
-            valids.append(valid)
-            timer.lap("extend")
-            if stats is not None:
-                stats["hit_totals"][si] += total
-                stats["seed_counts"][si] += n_seeds_h
-            if out_dir:
-                timer.start()
-                fname = f"win_{fp}_{strand}_{w:06d}.npz"
-                np.savez_compressed(
-                    os.path.join(out_dir, fname),
-                    valid=valid.cpu().numpy(),
-                    **{f: v.cpu().numpy() for f, v in frag.items()})
-                with open(manifest, "a") as f:
-                    f.write(json.dumps({"fp": fp, "window": w,
-                                        "strand": strand, "file": fname,
-                                        "n_seeds": n_seeds_h}) + "\n")
-                timer.lap("io")
+    with trace.span("compare", device=dev):
+        stage = StageTimer(stats, dev)
+        with stage("index"):
+            dcx = torch.from_numpy(cx.copy()).to(dev)
+            dcx_pad = torch.from_numpy(cx_pad).to(dev)
+            dcy = dcx if self_cmp else torch.from_numpy(cy.copy()).to(dev)
+            strands = [s for s in (0, 1) if "fr"[s] in cfg.strands]
+            idxX = build_index(dcx, cfg.k)
+            idxX_occ = (idxX[0], idxX[2])
+        if stats is not None:
+            stats["windows"] = n_win
+            stats["hit_totals"] = [0] * len(strands)
+            stats["seed_counts"] = [0] * len(strands)
+        frags, valids = [], []
+        for si, strand in enumerate(strands):
+            with stage("index"):
+                if strand == 0:
+                    cy_cmp = dcy
+                    idxY = idxX if self_cmp else build_index(cy_cmp, cfg.k)
+                    self_mode = "f" if self_cmp else None
+                else:
+                    cy_cmp = revcomp_device(dcy)
+                    idxY = build_index(cy_cmp, cfg.k)
+                    self_mode = "r" if self_cmp else None
+            for w in range(n_win):
+                key = (w, strand)
+                if key in done:
+                    with stage("io"), np.load(
+                            os.path.join(out_dir, done[key])) as z:
+                        frags.append({f: torch.from_numpy(z[f]).to(dev)
+                                      for f in _SAVE_FIELDS})
+                        valids.append(torch.from_numpy(z["valid"]).to(dev))
+                    continue
+                with stage("seeds"):
+                    spx, spy, sv, n_seeds, total = _window_seeds(
+                        dcx_pad, cy_cmp.shape[0], idxY, idxX_occ, w * win,
+                        cfg, self_mode, win)
+                    total, n_seeds_h = int(total), int(n_seeds)
+                    trace.count("hits", total)
+                    trace.count("seeds", n_seeds_h)
+                    if total > cfg.hit_capacity:
+                        raise ValueError(
+                            f"window {w} strand {strand}: {total} hits "
+                            f"exceed hit_capacity {cfg.hit_capacity}; "
+                            "shrink window or raise capacity")
+                    if n_seeds_h > cfg.seed_cap:
+                        raise ValueError(
+                            f"window {w} strand {strand}: {n_seeds_h} seeds "
+                            f"exceed seed_capacity {cfg.seed_cap}; shrink "
+                            "window or raise Config.seed_capacity")
+                with stage("extend"):
+                    frag, valid = extend_strand(spx, spy, sv, n_seeds, dcx,
+                                                cy_cmp, cfg, strand)
+                    frags.append(frag)
+                    valids.append(valid)
+                if stats is not None:
+                    stats["hit_totals"][si] += total
+                    stats["seed_counts"][si] += n_seeds_h
+                if out_dir:
+                    with stage("io"):
+                        fname = f"win_{fp}_{strand}_{w:06d}.npz"
+                        np.savez_compressed(
+                            os.path.join(out_dir, fname),
+                            valid=valid.cpu().numpy(),
+                            **{f: v.cpu().numpy() for f, v in frag.items()})
+                        with open(manifest, "a") as f:
+                            f.write(json.dumps({
+                                "fp": fp, "window": w, "strand": strand,
+                                "file": fname, "n_seeds": n_seeds_h}) + "\n")
 
-    timer.start()
-    out, _, n_frags = merge_strands(frags, valids, cy.shape[0], cfg)
-    n = int(n_frags)
-    if n > 0 and n == out["xStart"].shape[0]:
-        raise ValueError("frag capacity overflow in final merge")
-    frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
-    timer.lap("merge")
-    frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
-    timer.lap("families")
+        with stage("merge"):
+            out, _, n_frags = merge_strands(frags, valids, cy.shape[0], cfg)
+            n = int(n_frags)
+            if n > 0 and n == out["xStart"].shape[0]:
+                raise ValueError("frag capacity overflow in final merge")
+            trace.count("fragments", n)
+            frag = {f: v[:n].cpu().numpy() for f, v in out.items()}
+        # timed here, not as a stage: cluster_families is a span of its own
+        t0 = time.perf_counter()
+        frag["group"] = cluster_families(frag, cfg, self_cmp, device=dev)
+        if stats is not None:
+            stats["families"] = (stats.get("families", 0.0)
+                                 + time.perf_counter() - t0)
     return frag

@@ -7,8 +7,8 @@ named by the source's stem and a hash of its text, and loads it with
 ctypes: each C interface takes device pointers and a ``cudaStream_t``, so
 no torch headers are compiled. Several sources build at once, one nvcc
 process each. A failed compile or launch raises with the compiler's or
-the runtime's message. Each kernel's wrapper counts its launches in its
-own ``launches`` attribute.
+the runtime's message. Each launch counts in the trace (utils/trace.py):
+K1's as ``k1_launches``, K2's as ``k2_launches``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
 from .ungapped import check_max_extend
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -160,11 +161,8 @@ def banded_gotoh(px, py, valid, cx, cy, base_off: int, step: int,
                 nl.data_ptr(), n, base_off, step, match, mismatch, x_drop,
                 E, band, gap_open, gap_extend, jcap, out.data_ptr(),
                 None if scratch is None else scratch.data_ptr())
-        banded_gotoh.launches += 1
+        trace.count("k1_launches")
     return tuple(out.unbind(0))
-
-
-banded_gotoh.launches = 0
 
 
 def ungapped_xdrop(px, py, valid, cx, cy, base_off: int, step: int,
@@ -183,8 +181,5 @@ def ungapped_xdrop(px, py, valid, cx, cy, base_off: int, step: int,
                 cx.data_ptr(), cx.shape[0], cy.data_ptr(), cy.shape[0],
                 nl.data_ptr(), n, base_off, step, match, mismatch, x_drop, E,
                 out.data_ptr())
-        ungapped_xdrop.launches += 1
+        trace.count("k2_launches")
     return tuple(out.unbind(0))
-
-
-ungapped_xdrop.launches = 0

@@ -28,6 +28,7 @@ import torch
 
 from ..config import Config
 from ..oracle import pipeline as orc
+from ..utils import trace
 from .device import cluster_families_device
 
 
@@ -103,17 +104,38 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
     gives the same labels; on a CUDA device without a GPU it raises.
     """
     n = frag["xStart"].shape[0]
-    if n == 0:
-        return np.zeros(0, np.int32)
-    fidx, counts, offs, lo, lens, pct, total, csum = _edge_ranges(
-        frag, cfg, self_cmp)
-    m = fidx.shape[0]
+    with trace.span("families"):
+        trace.count("fragments", n)
+        if n == 0:
+            return np.zeros(0, np.int32)
+        with trace.span("families.edges"):
+            fidx, counts, offs, lo, lens, pct, total, csum = _edge_ranges(
+                frag, cfg, self_cmp)
+        if (device_min_edges <= total <= DEVICE_EDGE_CAP
+                and int(lens.max(initial=0)) < (1 << 31) // 100
+                and (device_min_edges == 0
+                     or _device_cluster_enabled(device))):
+            with trace.span("families.propagate", device=device):
+                trace.count("path", 1)
+                return cluster_families_device(n, fidx, counts, lo, lens,
+                                               pct, total, device)
+        with trace.span("families.propagate"):
+            trace.count("path", 0)
+            return _propagate_host(n, fidx, counts, offs, lo, lens, pct,
+                                   total, csum, edge_chunk)
 
-    if (device_min_edges <= total <= DEVICE_EDGE_CAP
-            and int(lens.max(initial=0)) < (1 << 31) // 100
-            and (device_min_edges == 0 or _device_cluster_enabled(device))):
-        return cluster_families_device(n, fidx, counts, lo, lens, pct, total,
-                                       device)
+
+def _propagate_host(n: int, fidx, counts, offs, lo, lens, pct, total: int,
+                    csum, edge_chunk: int) -> np.ndarray:
+    """cluster_families' host path from the interval table of
+    _edge_ranges: edges streamed in ``edge_chunk`` blocks, min-label
+    propagation to the fixpoint; the kept edges and the rounds go to the
+    trace."""
+    if not total:
+        trace.count("edges", 0)
+        trace.count("rounds", 0)
+        return np.arange(n, dtype=np.int32)
+    m = fidx.shape[0]
 
     # source-interval chunk boundaries carrying ~edge_chunk edges each
     # (one hub interval with more neighbors than edge_chunk makes its
@@ -149,10 +171,10 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
     # while they fit ~2x edge_chunk entries; adversarial pileups beyond
     # that fall back to regenerating blocks per round (memory stays
     # bounded either way)
-    cache, cache_n, cache_ok = [], 0, True
+    cache, cache_n, cache_ok, kept = [], 0, True, 0
 
     def blocks(first: bool):
-        nonlocal cache, cache_n, cache_ok
+        nonlocal cache, cache_n, cache_ok, kept
         if not first and cache_ok:
             yield from cache
             return
@@ -160,6 +182,8 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
             blk = gen_block(int(i0), int(i1))
             if blk is None:
                 continue
+            if first:
+                kept += blk[0].shape[0]
             if first and cache_ok:
                 cache_n += blk[0].shape[0]
                 if cache_n <= 2 * edge_chunk:
@@ -170,8 +194,9 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
 
     # min-label propagation with pointer jumping to the fixpoint
     lab = np.arange(n, dtype=np.int64)
-    first = True
+    first, rounds = True, 0
     while True:
+        rounds += 1
         new = lab.copy()
         for ea, eb in blocks(first):
             la, lb = lab[ea], lab[eb]
@@ -190,4 +215,6 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
         if np.array_equal(new, lab):
             break
         lab = new
+    trace.count("edges", kept)
+    trace.count("rounds", rounds)
     return lab.astype(np.int32)

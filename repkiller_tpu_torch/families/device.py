@@ -26,29 +26,28 @@ padding changed no label.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
+
+from ..utils import trace
 
 
 def cluster_families_device(n: int, fidx: np.ndarray, counts: np.ndarray,
                             lo: np.ndarray, lens: np.ndarray, pct: int,
-                            total: int, device,
-                            stats: Optional[dict] = None) -> np.ndarray:
+                            total: int, device) -> np.ndarray:
     """Family label per fragment from the interval table (``fidx``,
     ``counts``, ``lo`` in the (space, start, end, fidx) lex order of
     families/cluster._edge_ranges; ``lens`` per fragment), computed on
     ``device``. The caller guarantees ``lens.max() * 100`` fits int32.
-    ``stats``, if given, gets the edges kept by the filter and the rounds.
-    A CUDA device without a usable GPU raises."""
+    The edges kept by the filter and the rounds go to the trace
+    (``edges``, ``rounds``). A CUDA device without a usable GPU raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device clustering on {dev} requested but no "
                            "CUDA GPU is available")
     if not total:
-        if stats is not None:
-            stats.update(edges=0, rounds=0)
+        trace.count("edges", 0)
+        trace.count("rounds", 0)
         return np.arange(n, dtype=np.int32)
     m = fidx.shape[0]
     # one host-to-device copy of the interval table and the lengths
@@ -68,6 +67,7 @@ def cluster_families_device(n: int, fidx: np.ndarray, counts: np.ndarray,
                          >= int(pct) * torch.maximum(la, lb))
     del la, lb
     ea, eb = ea[keep], eb[keep]
+    trace.count("edges", ea.shape[0])
 
     lab = torch.arange(n, device=dev)
     rounds = 0
@@ -81,6 +81,5 @@ def cluster_families_device(n: int, fidx: np.ndarray, counts: np.ndarray,
         if torch.equal(new, lab):
             break
         lab = new
-    if stats is not None:
-        stats.update(edges=int(ea.shape[0]), rounds=rounds)
+    trace.count("rounds", rounds)
     return lab.to(torch.int32).cpu().numpy()

@@ -18,6 +18,7 @@ from typing import List, Union
 
 import numpy as np
 
+from ..utils import trace
 from . import codec, native
 
 
@@ -46,6 +47,7 @@ class SeqSet:
         return ri, pos - self.offsets[ri]
 
 
+@trace.traced("io.scan_names")
 def _scan_names(data: bytes) -> List[str]:
     """Record names in parse_numpy's order and semantics (headers only; an
     implicit 'seq0' when sequence precedes the first header)."""
@@ -68,12 +70,14 @@ DEFAULT_SPACER = 32   # N codes between records: long enough that x-drop
                       # gap_open + 32*gap_extend) >> x_drop)
 
 
+@trace.traced("io.read_fasta")
 def read_fasta(src: Union[str, bytes, io.IOBase],
                spacer: int = DEFAULT_SPACER) -> SeqSet:
     """Parse FASTA from a path, bytes, or file object into a SeqSet.
 
     Records are concatenated with `spacer` N codes between them so k-mers
-    and extensions never bridge records."""
+    and extensions never bridge records. Each call is an "io.read_fasta"
+    trace span that counts the ``bytes`` read and the ``records``."""
     if isinstance(src, str) and (os.path.exists(src) or os.path.sep in src):
         with open(src, "rb") as f:
             data = f.read()
@@ -89,13 +93,17 @@ def read_fasta(src: Union[str, bytes, io.IOBase],
         if isinstance(data, str):
             data = data.encode("ascii")
         path = getattr(src, "name", "")
+    trace.count("bytes", len(data))
 
     # fast path: the native C++ parser (the same codes, offsets, lengths)
     if native.available():
         codes, offsets, lengths = native.parse_fasta(data, spacer)
-        return SeqSet(codes=codes, names=_scan_names(data),
+        seqs = SeqSet(codes=codes, names=_scan_names(data),
                       offsets=offsets, lengths=lengths, path=path)
-    return parse_numpy(data, spacer, path)
+    else:
+        seqs = parse_numpy(data, spacer, path)
+    trace.count("records", len(seqs.names))
+    return seqs
 
 
 def parse_numpy(data: bytes, spacer: int = DEFAULT_SPACER,

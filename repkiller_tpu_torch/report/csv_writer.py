@@ -19,11 +19,13 @@ strand fragments have yStart > yEnd, the GECKO convention):
 from __future__ import annotations
 
 import io
+import os
 from typing import Dict, Optional, TextIO, Union
 
 import numpy as np
 
 from ..io import native
+from ..utils import trace
 
 FRAG_COLUMNS = (
     "xStart", "yStart", "xEnd", "yEnd", "strand", "block", "length",
@@ -68,6 +70,14 @@ def _render_header(n: int, x_name: str, y_name: Optional[str],
         + "Type," + ",".join(FRAG_COLUMNS) + "\n")
 
 
+def count_bytes(dst) -> None:
+    """The size of a path destination, once written, as the innermost
+    trace span's ``bytes``; a stream counts nothing."""
+    if isinstance(dst, str):
+        trace.count("bytes", os.path.getsize(dst))
+
+
+@trace.traced("report.csv")
 def write_frags_csv(
     frag: Dict[str, np.ndarray],
     dst: Union[str, TextIO],
@@ -103,10 +113,13 @@ def write_frags_csv(
 
     Path destinations go through the native C++ writer when available
     (the same bytes); multi-record runs use the Python path (per-row
-    record ids)."""
+    record ids). Each call is a "report.csv" trace span that counts the
+    ``rows``, whether the ``native`` writer ran (1) or not (0) and, for a
+    path, the ``bytes`` written."""
     if coords not in ("concat", "record"):
         raise ValueError(f"coords must be 'concat' or 'record', got {coords!r}")
     n = int(frag["xStart"].shape[0])
+    trace.count("rows", n)
     self_cmp = y_name is None
     multirec = (x_seqs is not None and x_seqs.names
                 and len(x_seqs.names) > 1) or \
@@ -116,8 +129,11 @@ def write_frags_csv(
                             x_seqs=x_seqs, y_seqs=y_seqs, coords=coords)
     if coords == "record" and not multirec:
         coords = "concat"          # single record: identical coordinates
-    if isinstance(dst, str) and not multirec and native.available():
+    native_path = isinstance(dst, str) and not multirec and native.available()
+    trace.count("native", int(native_path))
+    if native_path:
         native.write_frags_csv(dst, header, frag, self_cmp)
+        count_bytes(dst)
         return
     close = False
     if isinstance(dst, str):
@@ -172,6 +188,7 @@ def write_frags_csv(
     finally:
         if close:
             f.close()
+    count_bytes(dst)
 
 
 def read_frags_csv(src: Union[str, TextIO, bytes]) -> Dict[str, np.ndarray]:

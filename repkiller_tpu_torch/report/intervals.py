@@ -16,6 +16,8 @@ import numpy as np
 
 from ..config import Config
 from ..oracle import pipeline as orc
+from ..utils import trace
+from .csv_writer import count_bytes
 
 
 def _emit_record_local(f, seqs, s: int, e: int) -> None:
@@ -34,6 +36,7 @@ def _emit_record_local(f, seqs, s: int, e: int) -> None:
                                       re - int(offs[r]) + 1))
 
 
+@trace.traced("report.bed")
 def write_intervals_bed(
     frag: Dict[str, np.ndarray],
     cfg: Config,
@@ -49,8 +52,11 @@ def write_intervals_bed(
 
     With x_seqs/y_seqs (SeqSet), rows are per-record with record-local
     coordinates — the multi-record masking path (e.g. chr2L+chr2R in one
-    FASTA); otherwise one name per space with concatenated coordinates."""
+    FASTA); otherwise one name per space with concatenated coordinates.
+    Each call is a "report.bed" trace span that counts the
+    ``intervals`` and, for a path, the ``bytes`` written."""
     iv = orc.repeat_intervals(frag, frag["group"], cfg, self_cmp)
+    trace.count("intervals", sum(len(v) for v in iv.values()))
     close = False
     if isinstance(dst, str):
         f = open(dst, "w")
@@ -69,14 +75,19 @@ def write_intervals_bed(
     finally:
         if close:
             f.close()
+    count_bytes(dst)
     return iv
 
 
+@trace.traced("report.summary")
 def write_family_summary(
     frag: Dict[str, np.ndarray], dst: Union[str, TextIO]
 ) -> Dict[str, np.ndarray]:
-    """Per-family stats CSV; returns the stats dict."""
+    """Per-family stats CSV; returns the stats dict. Each call is a
+    "report.summary" trace span that counts the ``rows`` (families) and,
+    for a path, the ``bytes`` written."""
     stats = orc.family_stats(frag, frag["group"])
+    trace.count("rows", int(stats["family"].shape[0]))
     close = False
     if isinstance(dst, str):
         f = open(dst, "w")
@@ -92,6 +103,7 @@ def write_family_summary(
     finally:
         if close:
             f.close()
+    count_bytes(dst)
     return stats
 
 

@@ -5,8 +5,9 @@ byte as ``repkiller_tpu.cli run --backend oracle`` does (the oracle gives
 the device backend's bytes, more cheaply), self and pairwise; the
 ``group`` round trip; ``--auto-capacity``; ``--profile``;
 ``--keep-intermediates`` (the reference's stage files, and a resume from
-them); ``--stage-timing``; ``--backend sharded`` with ``--host-devices``
-and ``--platform``; and the flags the run refuses."""
+them); ``--stage-timing``; the run's trace spans in the metrics line;
+``--backend sharded`` with ``--host-devices`` and ``--platform``; and the
+flags the run refuses."""
 
 import glob
 import json
@@ -60,7 +61,7 @@ def test_run_matches_reference_cli(fastas, tmp_path, capsys, mode, pair):
     for suffix in OUTPUTS:
         with open(ours + suffix, "rb") as a, open(ref + suffix, "rb") as b:
             assert a.read() == b.read(), suffix
-    assert got.keys() == want.keys()
+    assert got.keys() - {"spans"} == want.keys()
     assert got["fragments"] == want["fragments"] > 0
     assert got["families"] == want["families"] and got["bp"] == want["bp"]
     assert got["backend"] == "device"
@@ -110,6 +111,29 @@ def test_profile_writes_a_trace(fastas, tmp_path, capsys):
     assert _last_json(capsys)["fragments"] > 0
     trace = json.loads((prof / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_run_reports_its_spans_and_profiles_the_writes(fastas, tmp_path,
+                                                      capsys):
+    """The metrics line and the --metrics-json record carry the host
+    seconds of the run's trace spans by name, reading, comparing and
+    writing alike; the --profile trace holds them as repkiller.* ranges,
+    the writers' included."""
+    prof, rec = tmp_path / "prof", tmp_path / "m.jsonl"
+    assert tcli.main(["run", fastas["x"], "-o", str(tmp_path / "o"),
+                      "--device", "cpu", "--profile", str(prof),
+                      "--metrics-json", str(rec), *FLAGS]) == 0
+    got = _last_json(capsys)
+    assert json.loads(rec.read_text().splitlines()[-1]) == got
+    spans = got["spans"]
+    assert {"job", "io.read_fasta", "compare", "seeds", "extend", "merge",
+            "copy_out", "families", "report.csv", "report.summary",
+            "report.bed", "report.masked_fasta"} <= set(spans)
+    assert all(0 <= v <= spans["job"] for v in spans.values())
+    names = {e.get("name") for e in json.loads(
+        (prof / "trace.json").read_text())["traceEvents"]}
+    assert {"repkiller.job", "repkiller.compare", "repkiller.report.csv",
+            "repkiller.report.bed", "repkiller.report.masked_fasta"} <= names
 
 
 @pytest.mark.parametrize("flags,item", [

@@ -23,10 +23,16 @@ from repkiller_tpu_torch.extend import _cuda, ungapped
 from repkiller_tpu_torch.extend.banded import direction_plain
 from repkiller_tpu_torch.families import cluster as tcluster
 from repkiller_tpu_torch.oracle import pipeline as torc
-from repkiller_tpu_torch.utils import synth
+from repkiller_tpu_torch.utils import synth, trace
 from repkiller_tpu_torch.utils.metrics import profile_stages
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(mode: str) -> int:
+    """K1's (banded) or K2's (ungapped) launches so far, from the trace."""
+    return trace.totals().get(
+        "k1_launches" if mode == "banded" else "k2_launches", 0)
 
 
 @pytest.fixture
@@ -127,9 +133,9 @@ def _check_k1(inputs, n_live, band, E, jcap, gpu, x_drop=40,
     for base_off, step in ((12, +1), (-1, -1)):
         args = (base_off, step, match, mismatch, x_drop, E, band, gap_open,
                 gap_extend, jcap)
-        before = _cuda.banded_gotoh.launches
+        before = launches("banded")
         got = _cuda.banded_gotoh(*inputs, *args, torch.tensor(n_live, device=gpu))
-        assert _cuda.banded_gotoh.launches == before + 1
+        assert launches("banded") == before + 1
         want = direction_plain(*inputs, *args, n_live)
         for name, g, w in zip(("ei", "ej", "gain", "idents", "alive"), got, want):
             assert torch.equal(g, w), (band, E, step, name)
@@ -240,10 +246,10 @@ def test_ungapped_kernel_matches_plain(gpu, E, x_drop):
     inputs, n_live = _case(E + x_drop, gpu)
     for base_off, step in ((12, +1), (-1, -1)):
         args = (base_off, step, 4, -4, x_drop, E)
-        before = _cuda.ungapped_xdrop.launches
+        before = launches("ungapped")
         got = _cuda.ungapped_xdrop(*inputs, *args,
                                    torch.tensor(n_live, device=gpu))
-        assert _cuda.ungapped_xdrop.launches == before + 1
+        assert launches("ungapped") == before + 1
         want = ungapped.direction_plain(*inputs, *args, n_live)
         for name, g, w in zip(("ext", "gain", "idents"), got, want):
             assert torch.equal(g, w), (E, x_drop, step, name)
@@ -253,9 +259,9 @@ def test_ungapped_kernel_matches_plain(gpu, E, x_drop):
 def _check_k2(inputs, n_live, args, gpu):
     """K2 against the plain version, exactly, with a device n_live -> the
     kernel's outputs."""
-    before = _cuda.ungapped_xdrop.launches
+    before = launches("ungapped")
     got = _cuda.ungapped_xdrop(*inputs, *args, torch.tensor(n_live, device=gpu))
-    assert _cuda.ungapped_xdrop.launches == before + 1
+    assert launches("ungapped") == before + 1
     want = ungapped.direction_plain(*inputs, *args, n_live)
     for name, g, w in zip(("ext", "gain", "idents"), got, want):
         assert torch.equal(g, w), (args, name)
@@ -321,9 +327,9 @@ def test_pipeline_on_card_matches_cpu(gpu):
     g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=2)
     cfg = Config(k=12, strands="fr", extend_mode="banded",
                  hit_capacity=1 << 14, max_extend=512)
-    before = _cuda.banded_gotoh.launches
+    before = launches("banded")
     got = tdevice.compare(g.codes, None, cfg, gpu)
-    assert _cuda.banded_gotoh.launches > before
+    assert launches("banded") > before
     want = tdevice.compare(g.codes, None, cfg, "cpu")
     assert got["xStart"].shape[0] > 0
     for f in want:
@@ -334,10 +340,10 @@ def test_ungapped_pipeline_on_card_matches_cpu(gpu):
     """The default Config (ungapped) with both strands, self-comparison."""
     g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=3)
     cfg = Config(strands="fr", hit_capacity=1 << 14)
-    k1, k2 = _cuda.banded_gotoh.launches, _cuda.ungapped_xdrop.launches
+    k1, k2 = launches("banded"), launches("ungapped")
     got = tdevice.compare(g.codes, None, cfg, gpu)
-    assert _cuda.ungapped_xdrop.launches > k2
-    assert _cuda.banded_gotoh.launches == k1
+    assert launches("ungapped") > k2
+    assert launches("banded") == k1
     want = tdevice.compare(g.codes, None, cfg, "cpu")
     assert got["xStart"].shape[0] > 0
     for f in want:
@@ -351,18 +357,15 @@ def test_pairwise_pipeline_on_card_matches_cpu(gpu, mode):
     y[::37] = (y[::37] + 1) % 4
     cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 15,
                  max_extend=512)
-    kernel = _cuda.ungapped_xdrop if mode == "ungapped" else _cuda.banded_gotoh
-    before = kernel.launches
+    before = launches(mode)
     got = tdevice.compare(g.codes, y, cfg, gpu)
-    assert kernel.launches > before
+    assert launches(mode) > before
     want = tdevice.compare(g.codes, y, cfg, "cpu")
     assert got["xStart"].shape[0] > 0 and (got["strand"] == 1).any()
     for f in want:
         assert np.array_equal(got[f], want[f]), f
 
 
-def _kernel(mode):
-    return _cuda.ungapped_xdrop if mode == "ungapped" else _cuda.banded_gotoh
 
 
 @pytest.mark.parametrize("mode", ["ungapped", "banded"])
@@ -377,21 +380,21 @@ def test_streamed_on_card_matches_cpu(gpu, tmp_path, mode, pair):
         y[::41] = (y[::41] + 1) % 4
     cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 14,
                  max_extend=512, gate_stride=256)
-    other = _cuda.banded_gotoh if mode == "ungapped" else _cuda.ungapped_xdrop
-    k, o = _kernel(mode).launches, other.launches
+    other = "banded" if mode == "ungapped" else "ungapped"
+    k, o = launches(mode), launches(other)
     stats = {}
     got = compare_streamed(g.codes, y, cfg, out_dir=str(tmp_path),
                            window=4096, device=gpu, stats=stats)
-    assert _kernel(mode).launches - k >= 2 * stats["windows"] == 10
-    assert other.launches == o
+    assert launches(mode) - k >= 2 * stats["windows"] == 10
+    assert launches(other) == o
     want = compare_streamed(g.codes, y, cfg, window=4096, device="cpu")
     assert got["xStart"].shape[0] > 0 and (got["strand"] == 1).any()
     for f in want:
         assert np.array_equal(got[f], want[f]), f
-    k = _kernel(mode).launches
+    k = launches(mode)
     again = compare_streamed(g.codes, y, cfg, out_dir=str(tmp_path),
                              window=4096, device=gpu)
-    assert _kernel(mode).launches == k
+    assert launches(mode) == k
     for f in want:
         assert np.array_equal(again[f], want[f]), f
 
@@ -405,16 +408,16 @@ def test_staged_on_card_matches_cpu(gpu, tmp_path, mode, pair):
     y = g.codes[1000:15000].copy() if pair else None
     cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 15,
                  max_extend=512)
-    k = _kernel(mode).launches
+    k = launches(mode)
     got = tdevice.compare(g.codes, y, cfg, gpu,
                           keep_intermediates=str(tmp_path))
-    assert _kernel(mode).launches > k
+    assert launches(mode) > k
     want = tdevice.compare(g.codes, y, cfg, "cpu")
     assert got["xStart"].shape[0] > 0
-    k, timings = _kernel(mode).launches, {}
+    k, timings = launches(mode), {}
     again = tdevice.compare(g.codes, y, cfg, gpu, timings=timings,
                             keep_intermediates=str(tmp_path))
-    assert _kernel(mode).launches == k
+    assert launches(mode) == k
     assert "extend" not in timings and "seeds" not in timings \
         and "join" not in timings, timings
     for f in want:
@@ -442,9 +445,9 @@ def test_sharded_mesh_on_card_matches_device(gpu, mode, pair):
     cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 15,
                  max_extend=512)
     want = tdevice.compare(g.codes, y, cfg, gpu)
-    k = _kernel(mode).launches
+    k = launches(mode)
     got = compare_sharded(g.codes, y, cfg, make_mesh(2, 2, [gpu] * 4))
-    assert _kernel(mode).launches > k
+    assert launches(mode) > k
     assert got["xStart"].shape[0] > 0
     for f in want:
         assert np.array_equal(got[f], want[f]), f

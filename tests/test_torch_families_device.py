@@ -20,7 +20,7 @@ from repkiller_tpu_torch.families import cluster as tcluster
 from repkiller_tpu_torch.families.device import cluster_families_device
 from repkiller_tpu_torch.oracle import pipeline as torc
 from repkiller_tpu_torch.report import csv_writer as tcsv
-from repkiller_tpu_torch.utils import synth
+from repkiller_tpu_torch.utils import synth, trace
 
 from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_cuda import pileup_frags, random_frags
@@ -80,23 +80,44 @@ def test_forced_device_path_dense_pileup(device_calls):
                                  Config(proximity=5, len_ratio=0.97)],
                          ids=["default", "ratio90", "ratio97"])
 def test_forced_device_path_over_a_million_edges(cfg):
+    """Both paths on a table of over 10^6 edges: the same labels, and the
+    same kept edges in their "families.propagate" spans' counters."""
     frag = random_frags(5000, 10)
-    fidx, counts, _, lo, lens, pct, total, _ = tcluster._edge_ranges(
-        frag, cfg, True)
+    *_, total, _ = tcluster._edge_ranges(frag, cfg, True)
     assert total > 10 ** 6
-    stats = {}
-    lab = cluster_families_device(5000, fidx, counts, lo, lens, pct, total,
-                                  "cpu", stats)
-    assert np.array_equal(lab, _all_paths_agree(frag, cfg, True))
-    assert 0 < stats["edges"] <= total and stats["rounds"] >= 2
+    with trace.job() as job_id:
+        _all_paths_agree(frag, cfg, True)
+    device, host = _propagate_counters(job_id)
+    assert device["path"] == 1 and host["path"] == 0
+    for c in (device, host):
+        assert 0 < c["edges"] <= total and c["rounds"] >= 2
+    assert device["edges"] == host["edges"]
+
+
+def _propagate_counters(job_id: int) -> list:
+    """The counters of job ``job_id``'s "families.propagate" spans, in the
+    order the spans closed."""
+    return [s["counters"] for s in trace.spans()
+            if s["job"] == job_id and s["name"] == "families.propagate"]
 
 
 def test_no_edges_gives_every_fragment_its_own_family():
-    stats = {}
-    lab = cluster_families_device(5, *[np.zeros(0, np.int64)] * 4, 100, 0,
-                                  "cpu", stats)
-    assert np.array_equal(lab, np.arange(5, dtype=np.int32))
-    assert stats == {"edges": 0, "rounds": 0}
+    """Five fragments too far apart to link: each path gives every one its
+    own family and counts no edge and no round."""
+    starts = np.arange(5, dtype=np.int32) * 1000
+    frag = {"xStart": starts, "xEnd": starts + 99, "yStart": starts + 50000,
+            "yEnd": starts + 50099, "strand": np.zeros(5, np.int32),
+            "length": np.full(5, 100, np.int32),
+            "score": np.full(5, 100, np.int32),
+            "idents": np.full(5, 100, np.int32)}
+    for min_edges, path in ((0, 1), (1 << 62, 0)):
+        with trace.job() as job_id:
+            lab = tcluster.cluster_families(frag, Config(), True,
+                                            device_min_edges=min_edges,
+                                            device="cpu")
+        assert np.array_equal(lab, np.arange(5, dtype=np.int32))
+        assert _propagate_counters(job_id) == [
+            {"path": path, "edges": 0, "rounds": 0}]
 
 
 def test_env_switch_on_a_cpu_device_keeps_the_host_path(monkeypatch,
