@@ -20,7 +20,7 @@ import numpy as np
 from . import device as _device
 from .config import Config, DEFAULT
 from .families import cluster_families
-from .io import codec, fasta
+from .io import fasta
 from .oracle import pipeline as orc
 from .report import csv_writer, intervals as report_iv
 from .utils import trace
@@ -34,6 +34,28 @@ def _as_seqset(x: SeqLike) -> fasta.SeqSet:
     if isinstance(x, np.ndarray):
         return fasta.from_codes(x)
     return fasta.read_fasta(x)
+
+
+_LINE = 70
+# code -> letter; any other code -> a byte that is not ASCII, so the text
+# fails to decode
+_LETTERS = b"ACGTN".ljust(256, b"\xff")
+
+
+def _fasta_lines(codes: np.ndarray) -> str:
+    """uint8 codes as FASTA text: lines of 70 letters, each ending in a
+    newline, the last one shorter; a lone newline for no codes."""
+    n = codes.shape[0]
+    full, rest = divmod(n, _LINE)
+    letters = np.frombuffer(codes.tobytes().translate(_LETTERS), np.uint8)
+    lines = np.empty((full + (rest > 0), _LINE + 1), np.uint8)
+    lines[:full, :_LINE] = letters[: full * _LINE].reshape(full, _LINE)
+    lines[full:, :rest] = letters[full * _LINE :]
+    lines[:, _LINE] = ord("\n")
+    if rest:
+        lines[full, rest] = ord("\n")
+    size = n + lines.shape[0]
+    return str(memoryview(lines.reshape(-1)[:size]), "ascii") or "\n"
 
 
 @dataclass
@@ -106,10 +128,9 @@ class Result:
             o = int(seqs.offsets[r]) if seqs.offsets is not None else 0
             ln = int(seqs.lengths[r]) if seqs.lengths is not None \
                 else masked.shape[0]
-            body = codec.decode(masked[o : o + ln])
             name = seqs.names[r] if seqs.names else "seq0"
-            lines = [body[i : i + 70] for i in range(0, len(body), 70)]
-            out.append(">%s masked\n%s\n" % (name, "\n".join(lines)))
+            out.append(">%s masked\n" % name)
+            out.append(_fasta_lines(masked[o : o + ln]))
         text = "".join(out)
         trace.count("bytes", len(text))
         return text

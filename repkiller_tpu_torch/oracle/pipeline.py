@@ -473,21 +473,21 @@ def repeat_intervals(frag: Dict[str, np.ndarray], group: np.ndarray, cfg: Config
         m = space == sp
         s, e = start[m], end[m]
         o = np.lexsort((e, s))
-        s, e = s[o], e[o]
-        merged = []
-        cs, ce = None, None
-        for i in range(s.shape[0]):
-            if cs is None:
-                cs, ce = s[i], e[i]
-            elif s[i] <= ce + 1:
-                ce = max(ce, e[i])
-            else:
-                merged.append((cs, ce))
-                cs, ce = s[i], e[i]
-        if cs is not None:
-            merged.append((cs, ce))
-        out[int(sp)] = np.asarray(merged, dtype=np.int64).reshape(-1, 2)
+        out[int(sp)] = _merge_sorted(s[o], e[o])
     return out
+
+
+def _merge_sorted(s: np.ndarray, e: np.ndarray) -> np.ndarray:
+    """Union of inclusive intervals (s, e), e >= s, sorted by (s, e):
+    int64[n, 2]. An interval opens a new run where it starts more than one
+    base past the running maximum of the ends before it, so touching
+    intervals (s == end + 1) merge; a run ends at that maximum."""
+    run_end = np.maximum.accumulate(e)
+    first = np.flatnonzero(np.concatenate([[True], s[1:] > run_end[:-1] + 1]))
+    merged = np.empty((first.shape[0], 2), np.int64)
+    merged[:, 0] = s[first]
+    merged[:, 1] = run_end[np.append(first[1:], s.shape[0]) - 1]
+    return merged
 
 
 # --------------------------------------------------------------------------

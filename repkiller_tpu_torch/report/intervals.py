@@ -20,20 +20,38 @@ from ..utils import trace
 from .csv_writer import count_bytes
 
 
-def _emit_record_local(f, seqs, s: int, e: int) -> None:
-    """Write interval [s, e] (inclusive, concatenated coords) as one BED
-    row per overlapped record, record-local half-open coords. Parts that
-    fall on inter-record N spacers are dropped."""
-    offs = np.asarray(seqs.offsets)
-    lens = np.asarray(seqs.lengths)
-    r0 = max(0, int(np.searchsorted(offs, s, side="right")) - 1)
-    r1 = max(0, int(np.searchsorted(offs, e, side="right")) - 1)
-    for r in range(r0, r1 + 1):
-        rs = max(s, int(offs[r]))
-        re = min(e, int(offs[r]) + int(lens[r]) - 1)
-        if rs <= re:
-            f.write("%s\t%d\t%d\n" % (seqs.names[r], rs - int(offs[r]),
-                                      re - int(offs[r]) + 1))
+def _record_pieces(seqs, iv: np.ndarray):
+    """Cut merged intervals iv (inclusive, concatenated coords) at record
+    boundaries: (record index, record-local start, half-open end) of each
+    piece, in interval then record order, pieces on inter-record N
+    spacers dropped; and how many intervals gave more than one piece."""
+    offs = np.asarray(seqs.offsets, np.int64)
+    lens = np.asarray(seqs.lengths, np.int64)
+    s, e = iv[:, 0], iv[:, 1]
+    r0 = np.maximum(np.searchsorted(offs, s, side="right") - 1, 0)
+    r1 = np.maximum(np.searchsorted(offs, e, side="right") - 1, 0)
+    n_rec = r1 - r0 + 1
+    which = np.repeat(np.arange(s.shape[0]), n_rec)
+    r = r0[which] + np.arange(which.shape[0]) - np.repeat(
+        np.cumsum(n_rec) - n_rec, n_rec)
+    rs = np.maximum(s[which], offs[r])
+    re = np.minimum(e[which], offs[r] + lens[r] - 1)
+    keep = rs <= re
+    split = int(np.count_nonzero(
+        np.bincount(which[keep], minlength=s.shape[0]) > 1))
+    r, rs, re = r[keep], rs[keep], re[keep]
+    return r, rs - offs[r], re - offs[r] + 1, split
+
+
+def _rows(names, start: np.ndarray, end: np.ndarray) -> str:
+    """BED rows "name, start, end" in one format call; ``names`` is one
+    name or an object array of one per row."""
+    table = np.empty((start.shape[0], 3), object)
+    table[:, 0] = names
+    table[:, 1] = start
+    table[:, 2] = end
+    return ("%s\t%d\t%d\n" * start.shape[0]) % tuple(
+        table.ravel().tolist())
 
 
 @trace.traced("report.bed")
@@ -54,9 +72,22 @@ def write_intervals_bed(
     coordinates — the multi-record masking path (e.g. chr2L+chr2R in one
     FASTA); otherwise one name per space with concatenated coordinates.
     Each call is a "report.bed" trace span that counts the
-    ``intervals`` and, for a path, the ``bytes`` written."""
+    ``intervals``, the ``split`` ones (those that straddle a record
+    boundary and so give more than one row) and, for a path, the
+    ``bytes`` written."""
     iv = orc.repeat_intervals(frag, frag["group"], cfg, self_cmp)
     trace.count("intervals", sum(len(v) for v in iv.values()))
+    text, split = [], 0
+    for space in sorted(iv):
+        seqs = x_seqs if space == 0 else y_seqs
+        if seqs is not None and seqs.offsets is not None:
+            r, start, end, n = _record_pieces(seqs, iv[space])
+            text.append(_rows(np.asarray(seqs.names, object)[r], start, end))
+            split += n
+        else:
+            name = x_name if space == 0 else y_name
+            text.append(_rows(name, iv[space][:, 0], iv[space][:, 1] + 1))
+    trace.count("split", split)
     close = False
     if isinstance(dst, str):
         f = open(dst, "w")
@@ -64,14 +95,7 @@ def write_intervals_bed(
     else:
         f = dst
     try:
-        for space in sorted(iv):
-            seqs = x_seqs if space == 0 else y_seqs
-            name = x_name if space == 0 else y_name
-            for s, e in iv[space]:
-                if seqs is not None and seqs.offsets is not None:
-                    _emit_record_local(f, seqs, int(s), int(e))
-                else:
-                    f.write("%s\t%d\t%d\n" % (name, int(s), int(e) + 1))
+        f.write("".join(text))
     finally:
         if close:
             f.close()
@@ -110,11 +134,18 @@ def write_family_summary(
 def mask_codes(
     codes: np.ndarray, intervals: Optional[np.ndarray]
 ) -> np.ndarray:
-    """Hard-mask repeat intervals (inclusive int64[n,2]) to N in a uint8
-    code array — the repeat-masking capability of the reference tool."""
+    """Hard-mask repeat intervals (inclusive int64[n,2], non-negative,
+    sorted and disjoint as ``repeat_intervals`` gives them; ValueError
+    where they overlap or are out of order) to N in a uint8 code array —
+    the repeat-masking capability of the reference tool. Ends past the
+    array are clipped."""
     out = np.asarray(codes, np.uint8).copy()
     if intervals is None:
         return out
-    for s, e in intervals:
-        out[int(s) : int(e) + 1] = 4
+    n = out.shape[0]
+    iv = np.asarray(intervals, np.int64).reshape(-1, 2) + [0, 1]
+    bounds = np.concatenate([[0], np.minimum(iv.ravel(), n), [n]])
+    inside = np.zeros(bounds.shape[0] - 1, bool)
+    inside[1::2] = True
+    np.putmask(out, np.repeat(inside, np.diff(bounds)), 4)
     return out

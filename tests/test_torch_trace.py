@@ -6,6 +6,7 @@ one call of each layer gives, on the CPU. The case marked ``cuda`` runs
 on a card under ``torch.profiler``. This file imports no JAX."""
 
 import collections
+import io
 import sys
 import threading
 import time
@@ -260,6 +261,35 @@ def test_writer_and_reader_spans(genome, tmp_path):
             assert counts["intervals"] == sum(len(v) for v in out.values())
         if name == "report.csv":
             assert counts["native"] == int(native.available())
+
+
+def test_bed_span_counts_the_intervals_split_at_record_boundaries():
+    """``split`` on "report.bed": the merged intervals that straddle a
+    record boundary and so give more than one row. X and Y are the same
+    two records of 300 and 400 bases (offsets 0 and 332); in X one
+    interval straddles the spacer and one lies in a record, in Y one runs
+    from the spacer into the second record (one row) and one lies in a
+    record. On one record of the same codes none splits."""
+    codes = np.zeros(732, np.uint8)
+    two = fasta.SeqSet(codes=codes, names=["a", "b"],
+                       offsets=np.array([0, 332]), lengths=np.array([300, 400]))
+    frag = {"xStart": np.array([280, 100], np.int32),
+            "xEnd": np.array([350, 120], np.int32),
+            "yStart": np.array([310, 500], np.int32),
+            "yEnd": np.array([340, 560], np.int32),
+            "strand": np.zeros(2, np.int32), "score": np.ones(2, np.int32),
+            "length": np.ones(2, np.int32), "group": np.zeros(2, np.int32)}
+    for seqs, want in ((two, 1), (fasta.from_codes(codes, "a"), 0)):
+        res = api.Result(frag=frag, cfg=Config(), x=seqs, y=seqs)
+        out = io.StringIO()
+        iv, spans = _job(lambda: res.write_intervals(out))
+        assert _names(spans) == {"report.bed": 1}
+        assert spans[0]["counters"]["split"] == want
+        if seqs is two:
+            assert want == sum(int(np.count_nonzero(
+                (v[:, 0] < 300) & (v[:, 1] >= 332))) for v in iv.values())
+        n_iv = sum(len(v) for v in iv.values())
+        assert len(out.getvalue().splitlines()) == n_iv + want
 
 
 def test_spans_are_profiler_ranges_while_a_profiler_runs():
