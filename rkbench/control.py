@@ -23,7 +23,7 @@ sys.path.insert(0, str(BENCH))
 import torch  # noqa: E402
 
 from harness import check, genomes, manifest, reference, report  # noqa: E402
-from harness.driver import checked_genomes  # noqa: E402
+from harness.driver import checked_genomes, parse_entry  # noqa: E402
 
 
 def control_numbers(cell, seed: int, device: str, workdir: str) -> dict:
@@ -37,12 +37,15 @@ def control_numbers(cell, seed: int, device: str, workdir: str) -> dict:
                      cell.traffic["check_genomes"], len(pool))
     numbers = {k: 0 for k in check.LIMITS}
     for g in sample:
-        with open(pool[g]["path"], "rb") as f:
-            parsed = report.parse_fasta(f.read())
-        want, _ = reference.compare(parsed.codes, p, device)
-        got, _ = reference.compare(parsed.codes, p, device, max_extend=cut)
-        files = report.render(want, parsed, p.min_family, cfg["mask"])
-        got_files = report.render(got, parsed, p.min_family, cfg["mask"])
+        parsed, parsed_y = parse_entry(pool[g])
+        codes_y = None if parsed_y is None else parsed_y.codes
+        want, _ = reference.compare(parsed.codes, p, device, codes_y=codes_y)
+        got, _ = reference.compare(parsed.codes, p, device, max_extend=cut,
+                                   codes_y=codes_y)
+        files = report.render(want, parsed, p.min_family, cfg["mask"],
+                              parsed_y)
+        got_files = report.render(got, parsed, p.min_family, cfg["mask"],
+                                  parsed_y)
         for k, v in check.compare([got], [got_files], want, files).items():
             numbers[k] += v
     return numbers

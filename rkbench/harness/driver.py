@@ -6,7 +6,8 @@ calls the program once per genome and waits for the result. Job j reads
 pool genome j mod P. Jobs start one after another until ``seconds`` have
 passed since the first one started; every job started completes and
 counts. Each job is timed host to host, from the call that reads its
-FASTA until its last output file is closed.
+FASTA until its last output file is closed. A pairwise configuration's
+jobs each read a pair of genomes and compare the first with the second.
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     pool = genomes.make_pool(cfg, seed, workdir)
     if cell.traffic["loop"] != "closed" or cell.traffic["callers"] != 1:
         raise ValueError("the generator drives one caller in a closed loop")
-    if cfg["comparison"] != "self":
-        raise ValueError("the reference compares a genome with itself only")
+    if cfg["comparison"] not in ("self", "pair"):
+        raise ValueError(f"unknown comparison {cfg['comparison']!r}")
     job = Job(cfg, cell.settings, device)
     on_cuda = torch.device(device).type == "cuda"
 
@@ -103,7 +104,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     def one(g: int, tag: str, sp, st):
         s = time.perf_counter()
         try:
-            frag = job.run(pool[g]["path"], prefix(tag, g), sp, st)
+            frag = job.run(pool[g]["path"], prefix(tag, g), sp, st,
+                           pool[g].get("path_y"))
         except Exception:                     # a failed job is a wrong answer
             failures.append(traceback.format_exc())
             frag = None
@@ -154,10 +156,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     p = reference.Params.from_dict(cell.settings)
     work = {}
     for g in sample:
-        with open(pool[g]["path"], "rb") as f:
-            parsed = report.parse_fasta(f.read())
-        want, work[g] = reference.compare(parsed.codes, p, device)
-        want_files = report.render(want, parsed, p.min_family, cfg["mask"])
+        parsed, parsed_y = parse_entry(pool[g])
+        want, work[g] = reference.compare(
+            parsed.codes, p, device,
+            codes_y=None if parsed_y is None else parsed_y.codes)
+        want_files = report.render(want, parsed, p.min_family, cfg["mask"],
+                                   parsed_y)
         files = [{s: _read(prefix(tag, g) + "." + s) for s in want_files}
                  for tag in tagged[g]]
         for k, v in check.compare(tables[g], files, want, want_files).items():
@@ -170,6 +174,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     if trace and prof_jobs and on_cuda:
         run.least_s = _least_seconds(cell, p, prof_jobs, work, pool, log)
     return run, numbers
+
+
+def parse_entry(entry: dict):
+    """A pool entry's genomes as the reference parses them -> (X, Y or
+    None)."""
+    out = []
+    for key in ("path", "path_y"):
+        if key in entry:
+            with open(entry[key], "rb") as f:
+                out.append(report.parse_fasta(f.read()))
+    return out[0], (out[1] if len(out) > 1 else None)
 
 
 def _read(path: str) -> Optional[bytes]:

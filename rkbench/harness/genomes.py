@@ -5,6 +5,11 @@ repeat families, written as FASTA files.
 the JAX package's generator), so the yardstick does not move when the
 program's copy does: a seeded uniform background with planted families of
 exact, diverged and inverted copies at non-overlapping positions.
+
+A pairwise configuration (``"comparison": "pair"``) pools pairs of
+strains: strain A is planted as above, and strain B is derived from A by
+``derive_strain``, a frozen copy of ``benchmarks/run_config3.py``'s
+divergence profile (SNPs, a segment swap, an inserted block).
 """
 
 from __future__ import annotations
@@ -90,17 +95,51 @@ def fasta_bytes(records: Sequence[Tuple[str, np.ndarray]]) -> bytes:
     return b"".join(out)
 
 
+def derive_strain(a: np.ndarray, profile: dict, seed: int) -> np.ndarray:
+    """Strain B of a pair from strain A's codes: substitutions at
+    ``snp_rate``, A's first two quarters swapped (``swap`` "quarter"), and
+    ``insertion_bp`` random bases inserted at A's midpoint."""
+    if profile["swap"] != "quarter":
+        raise ValueError(f"unknown swap {profile['swap']!r}")
+    size = a.shape[0]
+    rng = np.random.default_rng(seed)
+    b = a.copy()
+    snp = rng.random(size) < profile["snp_rate"]
+    b[snp] = (b[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+    q = size // 4
+    b = np.concatenate([b[q : 2 * q], b[:q], b[2 * q :]])
+    ins = rng.integers(0, 4, profile["insertion_bp"]).astype(np.uint8)
+    return np.concatenate([b[: size // 2], ins, b[size // 2 :]])
+
+
+def _write(path: str, records) -> int:
+    """Write ``records`` as FASTA at ``path`` -> their bases."""
+    with open(path, "wb") as f:
+        f.write(fasta_bytes(records))
+    return sum(c.shape[0] for _, c in records)
+
+
 def make_pool(config: dict, seed: int, directory: str) -> List[dict]:
     """The configuration's pool of genomes for ``seed``, each written as a
-    FASTA file under ``directory`` -> [{"path", "bp"}] (bp: input bases)."""
+    FASTA file under ``directory`` -> [{"path", "bp"}] (bp: input bases).
+    A pairwise configuration's entries are pairs: {"path" (strain A),
+    "path_y" (strain B), "bp" (both)}."""
     pool = []
     for i in range(config["pool"]):
         records = [(rec["name"], plant(rec["length"], config["families"],
                                        genome_seed(seed, i, r)))
                    for r, rec in enumerate(config["records"])]
+        if config["comparison"] == "pair":
+            if len(records) != 1:
+                raise ValueError("strain B derives from a single record")
+            b = config["strain_b"]
+            y = [(b["name"], derive_strain(records[0][1], b,
+                                           genome_seed(seed, i, 1)))]
+            path = os.path.join(directory, f"pair{i}_a.fa")
+            path_y = os.path.join(directory, f"pair{i}_b.fa")
+            pool.append({"path": path, "path_y": path_y,
+                         "bp": _write(path, records) + _write(path_y, y)})
+            continue
         path = os.path.join(directory, f"genome{i}.fa")
-        with open(path, "wb") as f:
-            f.write(fasta_bytes(records))
-        pool.append({"path": path,
-                     "bp": sum(c.shape[0] for _, c in records)})
+        pool.append({"path": path, "bp": _write(path, records)})
     return pool

@@ -77,18 +77,26 @@ class Job:
                      if self.backend == "sharded" else None)
 
     def run(self, path: str, prefix: str, spans: Spans,
-            stages: Optional[dict] = None):
+            stages: Optional[dict] = None, path_y: Optional[str] = None):
         """One job -> its fragment table. ``stages`` (a dict; device
-        backend) gathers the pipeline's own stage walls."""
+        backend) gathers the pipeline's own stage walls. ``path_y``: the
+        second genome of a pairwise job, compared with the first as
+        ``cli run fasta_x fasta_y`` does."""
         with spans("fasta_read"):
             seqs = read_fasta(path)
+        ys = None
+        if path_y is not None:
+            with spans("fasta_read"):
+                ys = read_fasta(path_y)
         with spans("compare"):
             if stages is not None:
-                frag = rk_device.compare(seqs.codes, None, self.cfg,
-                                         self.device, timings=stages)
-                res = api.Result(frag=frag, cfg=self.cfg, x=seqs)
+                frag = rk_device.compare(seqs.codes,
+                                         None if ys is None else ys.codes,
+                                         self.cfg, self.device,
+                                         timings=stages)
+                res = api.Result(frag=frag, cfg=self.cfg, x=seqs, y=ys)
             else:
-                res = api.compare(seqs, None, self.cfg, backend=self.backend,
+                res = api.compare(seqs, ys, self.cfg, backend=self.backend,
                                   device=self.device, mesh=self.mesh)
         with spans("write"):
             res.write_csv(prefix + ".frags.csv")

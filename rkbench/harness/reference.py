@@ -27,6 +27,13 @@ device they are given. Nothing of the program is imported.
   space lie within ``proximity`` bp and their lengths are within
   ``len_ratio``; a family's id is its smallest member's index.
 
+A pairwise comparison of X with Y (``codes_y``) follows the oracle's
+pairwise semantics: strand f joins X's k-mers with Y's, strand r with
+revcomp(Y)'s, with ``max_occ`` applied on each side and no filter on
+(px, py); the seeds extend against Y and revcomp(Y), the merge maps
+reverse-strand y back with Y's length, and the families link intervals
+within X and within Y, two spaces.
+
 Besides the table, ``compare`` counts the work each extension needs: the
 rows each seed's banded DP runs, or the steps each seed's ungapped scan
 examines, up to and including the one where it stops.
@@ -124,10 +131,11 @@ def self_hits_f(km, pos, max_occ: int):
     return pos[a], pos[a + 1 + off]
 
 
-def self_hits_r(km, pos, km_r, pos_r, max_occ: int, L: int, k: int):
-    """Pairs (px in X, py in revcomp(X)) sharing a k-mer, px <= L - py - k."""
+def cross_hits(km, pos, km_y, pos_y, max_occ: int):
+    """Pairs (px in X, py in Y) sharing a k-mer that occurs at most
+    ``max_occ`` times on each side."""
     ux, cx, sx = _groups(km)
-    uy, cy, sy = _groups(km_r)
+    uy, cy, sy = _groups(km_y)
     h = torch.searchsorted(uy, ux).clamp(max=max(uy.shape[0] - 1, 0))
     found = (uy[h] == ux) if uy.numel() else torch.zeros_like(ux, dtype=torch.bool)
     keep = found & (cx <= max_occ) & (cy[h] <= max_occ)
@@ -135,7 +143,12 @@ def self_hits_r(km, pos, km_r, pos_r, max_occ: int, L: int, k: int):
     reps = torch.where(keep[g_of], cy[h[g_of]], 0)
     a, off = _expand(reps)
     b = sy[h[g_of[a]]] + off
-    px, py = pos[a], pos_r[b]
+    return pos[a], pos_y[b]
+
+
+def self_hits_r(km, pos, km_r, pos_r, max_occ: int, L: int, k: int):
+    """Pairs (px in X, py in revcomp(X)) sharing a k-mer, px <= L - py - k."""
+    px, py = cross_hits(km, pos, km_r, pos_r, max_occ)
     m = px <= L - py - k
     return px[m], py[m]
 
@@ -151,11 +164,13 @@ def _first_of_runs(*keys: torch.Tensor) -> torch.Tensor:
     return first
 
 
-def thin(px, py, p: Params, L: int):
+def thin(px, py, p: Params, L: int, Ly: Optional[int] = None):
     """Hits sorted by (diagonal, px), the first of each (diagonal,
-    px // min_hit_dist) bucket kept -> (px, py) in that order."""
+    px // min_hit_dist) bucket kept -> (px, py) in that order. ``L``:
+    X's length; ``Ly``: Y's (default ``L``)."""
+    Ly = L if Ly is None else Ly
     diag = px - py
-    order = torch.argsort((diag + L) * (L + 1) + px)
+    order = torch.argsort((diag + Ly) * (L + 1) + px)
     px, py, diag = px[order], py[order], diag[order]
     keep = _first_of_runs(diag, px // p.min_hit_dist)
     return px[keep], py[keep]
@@ -166,8 +181,9 @@ def thin(px, py, p: Params, L: int):
 @dataclass
 class Tasks:
     """One extension direction of many seeds: base t (0-based) read at
-    x = x0 + step * t in ``xbuf`` and y = y0 + step * t in ``ybuf[ybase :
-    ybase + L]``; both sequences have length L."""
+    x = x0 + step * t in ``xbuf`` (length L) and y = y0 + step * t in
+    ``ybuf[ybase : ybase + Ly]``, where ``ybuf`` holds Y then revcomp(Y),
+    each Ly = len(ybuf) // 2 long."""
 
     x0: torch.Tensor
     y0: torch.Tensor
@@ -195,6 +211,7 @@ def extend_ungapped(t: Tasks, xbuf, ybuf, L: int, p: Params):
         raise ValueError(f"max_extend {E} is not a multiple of {CHUNK}")
     dev = xbuf.device
     n = t.n
+    Ly = ybuf.shape[0] // 2
     ext = torch.zeros(n, dtype=I32, device=dev)
     best = torch.zeros(n, dtype=I32, device=dev)
     best_id = torch.zeros(n, dtype=I32, device=dev)
@@ -209,7 +226,7 @@ def extend_ungapped(t: Tasks, xbuf, ybuf, L: int, p: Params):
             break
         g = (c * CHUNK + u)[None, :] * t.step[act][:, None]
         xa, xok = _read(xbuf, 0, t.x0[act][:, None] + g, L)
-        ya, yok = _read(ybuf, t.ybase[act][:, None], t.y0[act][:, None] + g, L)
+        ya, yok = _read(ybuf, t.ybase[act][:, None], t.y0[act][:, None] + g, Ly)
         ok = xok & yok
         eq = ok & (xa == ya) & (xa < 4)
         s = s_c[:, None] + torch.cumsum(
@@ -244,6 +261,7 @@ def extend_banded(t: Tasks, xbuf, ybuf, L: int, p: Params):
     op, ex, xd = p.gap_open, p.gap_extend, p.x_drop
     dev = xbuf.device
     n = t.n
+    Ly = ybuf.shape[0] // 2
     out_ei = torch.zeros(n, dtype=I32, device=dev)
     out_ej = torch.zeros(n, dtype=I32, device=dev)
     out_g = torch.zeros(n, dtype=I32, device=dev)
@@ -257,7 +275,7 @@ def extend_banded(t: Tasks, xbuf, ybuf, L: int, p: Params):
     # row 0: cell (0, 0) = 0; (0, j) = -(open + j * ext) where y[0..j) exist
     j0 = (o - b).clamp(min=0)
     yend = t.y0[:, None] + t.step[:, None] * (j0[None, :] - 1).clamp(min=0)
-    y_in = lambda pos: (pos >= 0) & (pos < L)
+    y_in = lambda pos: (pos >= 0) & (pos < Ly)
     ok0 = (o[None, :] > b) & (j0[None, :] <= E) & y_in(t.y0)[:, None] & y_in(yend)
     H = torch.where(ok0, -(op + j0 * ex).to(I32), NEG).to(I32)
     H[:, b] = 0
@@ -301,7 +319,7 @@ def extend_banded(t: Tasks, xbuf, ybuf, L: int, p: Params):
         j_ok = (j >= 1) & (j <= E)
         jc = (j - 1).clamp(0, E - 1)
         yc, y_ok = _read(ybuf, tk.ybase[:, None],
-                         tk.y0[:, None] + tk.step[:, None] * jc[None, :], L)
+                         tk.y0[:, None] + tk.step[:, None] * jc[None, :], Ly)
         yok = y_ok & j_ok[None, :]
         xc, xok = _read(xbuf, 0, tk.x0 + tk.step * (i - 1), L)
         xc, xok = xc[:, None], xok[:, None]
@@ -382,7 +400,7 @@ def extend_gated(seeds, xbuf, ybuf, L: int, p: Params):
     px = torch.cat([s[0] for s in seeds])
     py = torch.cat([s[1] for s in seeds])
     strand = torch.cat([torch.full_like(s[0], s[2]) for s in seeds])
-    ybase = strand * L
+    ybase = strand * (ybuf.shape[0] // 2)
     anchor = torch.cat([_first_of_runs(s[0] - s[1], s[0] // p.gate_stride)
                         if p.gate_stride > 0 else
                         torch.ones_like(s[0], dtype=torch.bool)
@@ -415,7 +433,7 @@ def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
 
 def merge_accept(frag: Dict[str, torch.Tensor], p: Params, L: int):
     """Per-(strand, diagonal) merge, acceptance, original y coordinates and
-    the canonical order."""
+    the canonical order; ``L`` is Y's length."""
     n = frag["xStart"].shape[0]
     if n == 0:
         return frag
@@ -500,33 +518,42 @@ def revcomp(codes: torch.Tensor) -> torch.Tensor:
 
 
 def compare(codes: np.ndarray, p: Params, device="cpu",
-            max_extend: Optional[int] = None):
-    """Self-comparison of ``codes`` -> (the canonical fragment table with
-    its "group" column, as int32 numpy arrays; {"work": rows or steps the
-    extensions need, "extended": seed-directions extended}).
-    ``max_extend`` overrides the configuration's cap (the control)."""
+            max_extend: Optional[int] = None,
+            codes_y: Optional[np.ndarray] = None):
+    """Comparison of ``codes`` with itself, or with ``codes_y`` -> (the
+    canonical fragment table with its "group" column, as int32 numpy
+    arrays; {"work": rows or steps the extensions need, "extended":
+    seed-directions extended}). ``max_extend`` overrides the
+    configuration's cap (the control)."""
     if max_extend is not None:
         p = Params(**{**p.__dict__, "max_extend": max_extend})
+    self_cmp = codes_y is None
     cx = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(device)
-    L = cx.shape[0]
-    if L < p.k:
+    cy = cx if self_cmp else torch.from_numpy(
+        np.ascontiguousarray(codes_y, np.uint8)).to(device)
+    L, Ly = cx.shape[0], cy.shape[0]
+    if min(L, Ly) < p.k:
         return ({f: np.zeros(0, np.int32) for f in FIELDS + ("group",)},
                 {"work": 0, "extended": 0})
-    cr = revcomp(cx)
+    cr = revcomp(cy)
     km, pos = kmer_index(cx, p.k)
     seeds = []
     if "f" in p.strands:
-        seeds.append(thin(*self_hits_f(km, pos, p.max_occ), p, L) + (0,))
+        hits = (self_hits_f(km, pos, p.max_occ) if self_cmp else
+                cross_hits(km, pos, *kmer_index(cy, p.k), p.max_occ))
+        seeds.append(thin(*hits, p, L, Ly) + (0,))
+        del hits
     if "r" in p.strands:
         km_r, pos_r = kmer_index(cr, p.k)
-        seeds.append(thin(*self_hits_r(km, pos, km_r, pos_r, p.max_occ, L,
-                                       p.k), p, L) + (1,))
-        del km_r, pos_r
+        hits = (self_hits_r(km, pos, km_r, pos_r, p.max_occ, L, p.k)
+                if self_cmp else cross_hits(km, pos, km_r, pos_r, p.max_occ))
+        seeds.append(thin(*hits, p, L, Ly) + (1,))
+        del km_r, pos_r, hits
     del km, pos
-    ybuf = torch.cat([cx, cr])
+    ybuf = torch.cat([cy, cr])
     frag, work, extended = extend_gated(seeds, cx, ybuf, L, p)
-    frag = merge_accept(frag, p, L)
-    frag["group"] = families(frag, p, self_cmp=True)
+    frag = merge_accept(frag, p, Ly)
+    frag["group"] = families(frag, p, self_cmp)
     return ({f: frag[f].cpu().numpy().astype(np.int32)
              for f in FIELDS + ("group",)},
             {"work": work, "extended": extended})

@@ -1,7 +1,8 @@
 """Plain reference of a genome job's input parse and output files.
 
 The file formats are the program's (GECKO-shaped fragment CSV, family
-summary CSV, BED of repeat intervals, hard-masked FASTA), rendered here
+summary CSV, BED of repeat intervals, hard-masked FASTA), of a
+self-comparison or of a pairwise one, rendered here
 from the reference's own fragment table in plain Python and numpy; the
 program's files are judged against these bytes. Nothing of the program is
 imported.
@@ -10,7 +11,7 @@ imported.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -125,34 +126,43 @@ def family_csv(frag) -> bytes:
     return "".join(lines).encode("ascii")
 
 
-def frags_csv(frag, g: Genome) -> bytes:
-    """The fragment CSV of a self-comparison (1-based inclusive
-    coordinates in the joined space; the family id in the block column;
-    record ids in seqX/seqY when there are several records)."""
+def _records(gg: Genome) -> str:
+    return " ".join("%s:%d:%d" % (nm, o, ln) for nm, o, ln in
+                    zip(gg.names, gg.offsets.tolist(), gg.lengths.tolist()))
+
+
+def frags_csv(frag, g: Genome, y: Optional[Genome] = None) -> bytes:
+    """The fragment CSV of a self-comparison, or of X (``g``) against Y
+    (``y``): 1-based inclusive coordinates in the joined space; the family
+    id in the block column; record ids in seqX/seqY when there are several
+    records, else 0, and 1 in seqY of a pairwise run."""
     n = int(frag["xStart"].shape[0])
+    gy = g if y is None else y
     multi = len(g.names) > 1
     head = ["All by-Identity Fragments (repkiller-tpu)\n",
             "SeqX name : %s\n" % g.names[0],
             "SeqX length : %d\n" % g.codes.shape[0],
-            "SeqY name : %s\n" % g.names[0],
-            "SeqY length : %d\n" % g.codes.shape[0]]
+            "SeqY name : %s\n" % gy.names[0],
+            "SeqY length : %d\n" % gy.codes.shape[0]]
     if multi:
-        recs = " ".join("%s:%d:%d" % (nm, o, ln) for nm, o, ln in
-                        zip(g.names, g.offsets.tolist(), g.lengths.tolist()))
-        head += ["Records X : %s\n" % recs, "Records Y : %s\n" % recs]
+        head += ["Records X : %s\n" % _records(g),
+                 "Records Y : %s\n" % _records(gy)]
+    elif len(gy.names) > 1:
+        head += ["Records Y : %s\n" % _records(gy)]
     head += ["Total hits (seeds) : 0\n", "Total fragments : %d\n" % n,
              "=" * 56 + "\n",
              "Type,xStart,yStart,xEnd,yEnd,strand,block,length,score,ident,"
              "similarity,identity,seqX,seqY\n"]
 
-    def rec_ids(a, b):
-        if not multi:
-            return np.zeros(n, np.int64)
+    def rec_ids(gg, a, b, single):
+        if len(gg.names) < 2:
+            return np.full(n, single, np.int64)
         left = np.minimum(a, b)
-        return np.maximum(np.searchsorted(g.offsets, left, side="right") - 1, 0)
+        return np.maximum(np.searchsorted(gg.offsets, left, side="right") - 1,
+                          0)
 
-    rx = rec_ids(frag["xStart"], frag["xEnd"])
-    ry = rec_ids(frag["yStart"], frag["yEnd"])
+    rx = rec_ids(g, frag["xStart"], frag["xEnd"], 0)
+    ry = rec_ids(gy, frag["yStart"], frag["yEnd"], 0 if y is None else 1)
     cols = [frag[f].astype(np.int64).tolist() for f in
             ("xStart", "yStart", "xEnd", "yEnd", "strand", "group", "length",
              "score", "idents")]
@@ -166,18 +176,25 @@ def frags_csv(frag, g: Genome) -> bytes:
     return ("".join(head) + "".join(rows)).encode("ascii")
 
 
-def bed(iv: Dict[int, np.ndarray], g: Genome) -> bytes:
-    """Repeat intervals of X as BED rows, one per record they overlap, in
-    record-local half-open coordinates; parts on spacers are dropped."""
+def bed(iv: Dict[int, np.ndarray], g: Genome,
+        y: Optional[Genome] = None) -> bytes:
+    """Repeat intervals as BED rows, one per record they overlap, in
+    record-local half-open coordinates; parts on spacers are dropped.
+    Those of X (space 0) on ``g``'s records, then, in a pairwise run,
+    those of Y (space 1) on ``y``'s."""
     rows = []
-    for s, e in iv.get(0, np.zeros((0, 2), np.int64)).tolist():
-        r0 = max(0, int(np.searchsorted(g.offsets, s, side="right")) - 1)
-        r1 = max(0, int(np.searchsorted(g.offsets, e, side="right")) - 1)
-        for r in range(r0, r1 + 1):
-            o, ln = int(g.offsets[r]), int(g.lengths[r])
-            rs, re = max(s, o), min(e, o + ln - 1)
-            if rs <= re:
-                rows.append("%s\t%d\t%d\n" % (g.names[r], rs - o, re - o + 1))
+    for space, gg in ((0, g), (1, y)):
+        if gg is None:
+            continue
+        for s, e in iv.get(space, np.zeros((0, 2), np.int64)).tolist():
+            r0 = max(0, int(np.searchsorted(gg.offsets, s, side="right")) - 1)
+            r1 = max(0, int(np.searchsorted(gg.offsets, e, side="right")) - 1)
+            for r in range(r0, r1 + 1):
+                o, ln = int(gg.offsets[r]), int(gg.lengths[r])
+                rs, re = max(s, o), min(e, o + ln - 1)
+                if rs <= re:
+                    rows.append("%s\t%d\t%d\n" % (gg.names[r], rs - o,
+                                                  re - o + 1))
     return "".join(rows).encode("ascii")
 
 
@@ -200,11 +217,13 @@ def masked_fasta(iv: Dict[int, np.ndarray], g: Genome) -> bytes:
     return b"".join(out)
 
 
-def render(frag, g: Genome, min_family: int, mask: bool) -> Dict[str, bytes]:
-    """Every file of a job, by suffix."""
-    iv = repeat_intervals(frag, min_family)
-    files = {"frags.csv": frags_csv(frag, g), "families.csv": family_csv(frag),
-             "repeats.bed": bed(iv, g)}
+def render(frag, g: Genome, min_family: int, mask: bool,
+           y: Optional[Genome] = None) -> Dict[str, bytes]:
+    """Every file of a job, by suffix; ``y``: the second genome of a
+    pairwise job (the masked FASTA is X's)."""
+    iv = repeat_intervals(frag, min_family, self_cmp=y is None)
+    files = {"frags.csv": frags_csv(frag, g, y),
+             "families.csv": family_csv(frag), "repeats.bed": bed(iv, g, y)}
     if mask:
         files["masked.fasta"] = masked_fasta(iv, g)
     return files

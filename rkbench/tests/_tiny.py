@@ -19,11 +19,17 @@ SEED = 2**31 + 77
 
 def tiny_cell(name: str, length: int = 9000, pool: int = 2, **settings):
     """The cell ``name`` with every record ``length`` bp long, a pool of
-    ``pool`` genomes and capacities for that size; ``settings`` override
-    Config fields."""
+    ``pool`` genomes (or pairs) and capacities for that size; a pair's
+    strain B shrinks with A, its insertion in proportion. ``settings``
+    override Config fields."""
     cell = manifest.cell(name)
     cell.config = copy.deepcopy(cell.config)
     cell.traffic = copy.deepcopy(cell.traffic)
+    strain_b = cell.config.get("strain_b")
+    if strain_b is not None:
+        full = cell.config["records"][0]["length"]
+        strain_b["insertion_bp"] = max(
+            1, strain_b["insertion_bp"] * length // full)
     for rec in cell.config["records"]:
         rec["length"] = length
     cell.config["pool"] = pool
