@@ -8,11 +8,15 @@ passed since the first one started; every job started completes and
 counts. Each job is timed host to host, from the call that reads its
 FASTA until its last output file is closed. A pairwise configuration's
 jobs each read a pair of genomes and compare the first with the second.
+A cell on several chips runs every job on every rank at once (``ranks``)
+and is measured on rank 0, its peak memory on the fullest card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import shutil
 import sys
 import time
 import traceback
@@ -77,16 +81,21 @@ def checked_genomes(seed: int, used: List[int], n: int,
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
              workdir: str, t0: float, log=print):
-    """-> (the Run, the numbers compared, the profiled Trace or None)."""
+    """-> (the Run, the numbers compared). A cell on several chips runs as
+    as many ranks, this process rank 0 on ``device`` (``ranks``); the
+    reference runs here once the other ranks have stopped."""
     from .job import Job, Spans, install_family_span
 
     cfg = cell.config
-    pool = genomes.make_pool(cfg, seed, workdir)
     if cell.traffic["loop"] != "closed" or cell.traffic["callers"] != 1:
         raise ValueError("the generator drives one caller in a closed loop")
     if cfg["comparison"] not in ("self", "pair"):
         raise ValueError(f"unknown comparison {cfg['comparison']!r}")
-    job = Job(cfg, cell.settings, device)
+    ranks = None
+    if cell.chips > 1:
+        from .ranks import RankedJob, Ranks
+        ranks = Ranks(cell.chips, device, log, cleanup=lambda: shutil.rmtree(
+            workdir, ignore_errors=True))
     on_cuda = torch.device(device).type == "cuda"
 
     def sync():
@@ -98,20 +107,28 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
     spans = Spans(trace)
     stages = {} if trace and cfg["backend"] == "device" else None
-    remove = install_family_span(spans) if trace else None
+    remove = None
     failures = []
 
-    def one(g: int, tag: str, sp, st):
-        s = time.perf_counter()
-        try:
-            frag = job.run(pool[g]["path"], prefix(tag, g), sp, st,
-                           pool[g].get("path_y"))
-        except Exception:                     # a failed job is a wrong answer
-            failures.append(traceback.format_exc())
-            frag = None
-        return s, time.perf_counter(), frag
-
     try:
+        pool = genomes.make_pool(cfg, seed, workdir)
+        if ranks is not None:
+            ranks.join(cfg, cell.settings)
+        job = Job(cfg, cell.settings, device)
+        if ranks is not None:
+            job = RankedJob(ranks, job)
+        remove = install_family_span(spans) if trace else None
+
+        def one(g: int, tag: str, sp, st):
+            s = time.perf_counter()
+            try:
+                frag = job.run(pool[g]["path"], prefix(tag, g), sp, st,
+                               pool[g].get("path_y"))
+            except Exception:                 # a failed job is a wrong answer
+                failures.append(traceback.format_exc())
+                frag = None
+            return s, time.perf_counter(), frag
+
         one(0, "warm", Spans(False), None)
         sync()
         if on_cuda:
@@ -126,7 +143,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             jobs.append(JobRecord(s, e, pool[g]["bp"], frag is not None, g))
             if frag is not None:
                 tables[g].append(frag)
-        peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+        if ranks is not None:
+            peak = ranks.peak()
+        else:
+            peak = torch.cuda.max_memory_allocated() if on_cuda else 0
         used = sorted({j.genome for j in jobs})
         sample = checked_genomes(seed, used, cell.traffic["check_genomes"],
                                  len(pool))
@@ -140,12 +160,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             prof_spans = Spans(True)
             remove = install_family_span(prof_spans)
             run.trace, prof_jobs = _profiled(cfg, sample, one, prof_spans,
-                                             tables, on_cuda)
+                                             tables, on_cuda, ranks)
             for g in set(prof_jobs):
                 tagged[g].append("prof")
     finally:
         if remove is not None:
             remove()
+        if ranks is not None:
+            ranks.close()
     del job
     if on_cuda:
         torch.cuda.empty_cache()
@@ -195,20 +217,35 @@ def _read(path: str) -> Optional[bytes]:
         return None
 
 
-def _profiled(cfg: dict, sample: List[int], one, spans, tables, on_cuda):
+def _profiled(cfg: dict, sample: List[int], one, spans, tables, on_cuda,
+              ranks=None):
     """Whole jobs under ``torch.profiler`` on the checked genomes ->
-    (their Trace, the genome of each)."""
+    (their Trace, the genome of each). On several ranks each profiles its
+    own card, and the Trace's busy seconds and window are the means over
+    the ranks; its kernels and idle gaps are this rank's."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
     genomes_run = [sample[q % len(sample)] for q in range(cfg["profiled_jobs"])]
+    if ranks is not None:
+        ranks.profile(True)
     with torch_profile(activities=acts) as prof:
         for g in genomes_run:
             with torch.profiler.record_function(profile.SPAN + "job"):
                 _, _, frag = one(g, "prof", spans, None)
             if frag is not None:
                 tables[g].append(frag)
-    return profile.from_profiler(prof), genomes_run
+    if ranks is not None:
+        ranks.profile(False)
+    tr = profile.from_profiler(prof)
+    if ranks is not None:
+        each = [(tr.busy_s, tr.window_s)] + ranks.profiled()
+        ranks.log("# device busy / window by rank (s): " + " ".join(
+            f"{b:.4f}/{w:.4f}" for b, w in each))
+        tr = dataclasses.replace(
+            tr, busy_s=sum(b for b, _ in each) / len(each),
+            window_s=sum(w for _, w in each) / len(each))
+    return tr, genomes_run
 
 
 def _least_seconds(cell: Cell, p, prof_jobs, work, pool, log) -> float:

@@ -1,8 +1,12 @@
 """One genome job through the program, as a batch annotation pipeline runs
 it: read the FASTA, compare, cluster families, write every output file.
 The steps mirror the program's ``cli run``; each is a call into one of
-the program's layers. This module is the only one of the benchmark that
-imports the program.
+the program's layers. This module and ``ranks`` (which joins the
+program's process group) are the only ones of the benchmark that import
+the program. Inside a process group, as on every rank of a cell on
+several cards, the sharded mesh is the program's ``ProcessMesh`` and the
+files are left to rank 0 (``write_on_host0``), as ``cli run
+--num-processes`` leaves them.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch
 from repkiller_tpu_torch import api, device as rk_device
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.dist import sharded as rk_sharded
-from repkiller_tpu_torch.dist.mesh import make_mesh
+from repkiller_tpu_torch.dist.merge import write_on_host0
+from repkiller_tpu_torch.dist.mesh import make_mesh, process_group_active
 from repkiller_tpu_torch.io.fasta import read_fasta
 
 SUFFIXES = ("frags.csv", "families.csv", "repeats.bed", "masked.fasta")
@@ -71,10 +76,15 @@ class Job:
         self.backend = config["backend"]
         self.mask = config["mask"]
         self.device = device
-        mesh = config["mesh"]
-        self.mesh = (make_mesh(mesh["n_data"], mesh["n_shard"],
-                               devices=[device] * mesh["n_data"] * mesh["n_shard"])
-                     if self.backend == "sharded" else None)
+        self.mesh = None
+        if self.backend == "sharded":
+            shape = config["mesh"]["n_data"], config["mesh"]["n_shard"]
+            if process_group_active():        # a ProcessMesh, a body a rank
+                self.mesh = make_mesh(*shape,
+                                      device=torch.device(device).type)
+            else:
+                self.mesh = make_mesh(*shape, devices=[device] * shape[0]
+                                      * shape[1])
 
     def run(self, path: str, prefix: str, spans: Spans,
             stages: Optional[dict] = None, path_y: Optional[str] = None):
@@ -99,10 +109,13 @@ class Job:
                 res = api.compare(seqs, ys, self.cfg, backend=self.backend,
                                   device=self.device, mesh=self.mesh)
         with spans("write"):
-            res.write_csv(prefix + ".frags.csv")
-            res.write_family_summary(prefix + ".families.csv")
-            res.write_intervals(prefix + ".repeats.bed")
-            if self.mask:
-                with open(prefix + ".masked.fasta", "w") as f:
-                    f.write(res.masked_fasta())
+            write_on_host0(self._write, res, prefix)
         return res.frag
+
+    def _write(self, res, prefix: str) -> None:
+        res.write_csv(prefix + ".frags.csv")
+        res.write_family_summary(prefix + ".families.csv")
+        res.write_intervals(prefix + ".repeats.bed")
+        if self.mask:
+            with open(prefix + ".masked.fasta", "w") as f:
+                f.write(res.masked_fasta())

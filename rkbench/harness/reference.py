@@ -53,6 +53,7 @@ FIELDS = ("xStart", "yStart", "xEnd", "yEnd", "strand", "length", "score",
           "idents")
 CHUNK = 32                     # ungapped steps per vectorised chunk
 COMPACT = 8                    # banded rows between compactions
+TASK_BLOCK = 1 << 22           # extension tasks run together at most
 
 
 @dataclass(frozen=True)
@@ -368,7 +369,13 @@ def extend_banded(t: Tasks, xbuf, ybuf, L: int, p: Params):
 
 def _extend(t: Tasks, xbuf, ybuf, L: int, p: Params):
     """-> (ext_x, ext_y, gain, idents, work) per task; work is rows run
-    (banded) or steps examined (ungapped)."""
+    (banded) or steps examined (ungapped). Tasks run in blocks of at most
+    TASK_BLOCK: each task's extension is its own, so the blocks bound the
+    memory of a genome-scale batch and change no result."""
+    if t.n > TASK_BLOCK:
+        parts = [_extend(t.take(slice(i, i + TASK_BLOCK)), xbuf, ybuf, L, p)
+                 for i in range(0, t.n, TASK_BLOCK)]
+        return tuple(torch.cat(c) for c in zip(*parts))
     if p.extend_mode == "banded":
         return extend_banded(t, xbuf, ybuf, L, p)
     ext, gain, idn, steps = extend_ungapped(t, xbuf, ybuf, L, p)
