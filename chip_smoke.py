@@ -83,7 +83,7 @@ Phases, each of which must pass (any failure exits non-zero):
      process mesh, its collectives on the card; the first run also sets up
      NCCL's communicators): each 85,400 fragments,
      132,102 repeat intervals and 9,997,161 bp masked; wall, device part,
-     host clustering and peak memory; then K1 == the plain version on the
+     clustering and peak memory; then K1 == the plain version on the
      phase-1 set of window 0, strand f;
  15. config #5 at 0.25x (benchmarks/run_config5.py: 62 Mbp, k=16, banded,
      hit capacity 2^21) through compare_sharded over make_mesh(): 140,486
@@ -95,9 +95,9 @@ Phases, each of which must pass (any failure exits non-zero):
      labels equal; fragments, edges before and after the ratio filter,
      rounds, the host path's seconds (median of 3), the device path's
      (median of 3 after a warm-up, labels on the host) and its peak device
-     memory. Then device.compare on the banded headline with
-     REPKILLER_DEVICE_CLUSTER=1: the path it took and its output, equal to
-     phase 5's field for field;
+     memory. Then device.compare on the banded headline with the default
+     rule: the path it took, its edges and blocks, and its output, equal
+     to phase 5's field for field and its labels to the host path's;
  17. the native host I/O (io/native.py, built with g++ in phase 1): config
      #4's 48 Mbp genome as a two-record FASTA through read_fasta (native)
      and the numpy parse, equal SeqSets; config #3's banded fragments
@@ -568,28 +568,28 @@ def phase_headline(codes: np.ndarray, cx: torch.Tensor, cfg: Config, smi: str):
     for name in stages[0]:
         vals = [s[name] for s in stages]
         print(f"#   stage {name}: {[round(v, 6) for v in vals]} s")
-    print(f"#   host clustering of the output, timed apart: "
-          f"{host_clustering(frag, cfg, True):.6f} s")
+    print(f"#   clustering of the output, timed apart: "
+          f"{clustering(frag, cfg, True):.6f} s")
     print(f"# {mode} headline peak device memory {peak:.3f} GiB; launches in "
           f"the counted run: {counted}; families {len(np.unique(frag['group']))}")
     return counted, frag
 
 
-def host_clustering(frag: dict, cfg: Config, self_cmp: bool) -> float:
-    """Seconds of the host family clustering of an output table, which
-    device.compare and compare_sharded run last; it must give the same
-    families."""
+def clustering(frag: dict, cfg: Config, self_cmp: bool) -> float:
+    """Seconds of the family clustering of an output table on the card's
+    default path, which device.compare and compare_sharded run last; it
+    must give the same families."""
     t0 = time.perf_counter()
     group = cluster_families({f: v for f, v in frag.items() if f != "group"},
                              cfg, self_cmp)
     dt = time.perf_counter() - t0
-    check(np.array_equal(group, frag["group"]), "host clustering differs")
+    check(np.array_equal(group, frag["group"]), "clustering differs")
     return dt
 
 
 def phase_profile(cx: torch.Tensor, cfg: Config, smi: str):
     """Device time by kernel name and the device's idle share over one
-    profiled run of the device part (host clustering excluded); profiling
+    profiled run of the device part (clustering excluded); profiling
     adds host overhead, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -794,7 +794,7 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
 
 def phase_pairwise(smi: str) -> dict:
     """Config #3 at full width: the device part once for its counts and
-    stage split, then api.compare (host clustering included) for the
+    stage split, then api.compare (clustering included) for the
     output and the end-to-end wall, with launches counted -> (the counted
     launches per mode, the output per mode)."""
     t0 = time.perf_counter()
@@ -1016,7 +1016,7 @@ def phase_streamed_pair(a: np.ndarray, b: np.ndarray, single: dict,
               f"{stats['seed_counts']}")
         check(counted[mode][mode] > 0, f"{what} launched {counted[mode]}")
         device_part = wall - stats["families"]
-        print(f"#   {what}: device part {device_part:.6f} s (wall less host "
+        print(f"#   {what}: device part {device_part:.6f} s (wall less "
               f"clustering; final merge {stats['merge']:.6f} s over "
               f"{stats['windows'] * 2 * cfg.seed_cap} rows)")
     check(counted["ungapped"]["banded"] == 0,
@@ -1106,9 +1106,9 @@ def big_run(what: str, run, cfg: Config, smi: str):
                                            "shard_slack")
              if getattr(used, f) != getattr(cfg, f)}
     check(counted[cfg.extend_mode] > 0, f"{what} launched {counted}")
-    host = host_clustering(frag, used, True)
-    print(f"# {what}: wall {wall:.6f} s, host clustering {host:.6f} s (timed "
-          f"apart), device part {wall - host:.6f} s (wall less clustering), "
+    clus = clustering(frag, used, True)
+    print(f"# {what}: wall {wall:.6f} s, clustering {clus:.6f} s (timed "
+          f"apart), the rest {wall - clus:.6f} s (wall less clustering), "
           f"peak device memory {peak:.3f} GiB, launches {counted}, capacities "
           f"grown {grown or 'none'} on {smi}")
     return frag, used, wall, counted
@@ -1227,58 +1227,59 @@ def cluster_both_paths(what: str, frag: dict, cfg: Config, self_cmp: bool,
                        smi: str) -> dict:
     """Both clustering paths of families/cluster.py on one output table,
     on the card: the host path three times, the device path once for its
-    edges, rounds and peak memory and then three times; every call's
-    labels against the host path's -> the row's numbers."""
+    counters and peak memory and then three times; every call's labels
+    against the host path's -> the row's numbers."""
     frag = {f: v for f, v in frag.items() if f != "group"}
     n = int(frag["xStart"].shape[0])
     t0 = time.perf_counter()
-    fidx, counts, _, lo, lens, pct, total, _ = tcluster._edge_ranges(
-        frag, cfg, self_cmp)
+    *_, total, _ = tcluster._edge_ranges(frag, cfg, self_cmp)
     table_s = time.perf_counter() - t0
-    check(total <= tcluster.DEVICE_EDGE_CAP, f"{what}: {total} edges over "
-          "the device path's cap")
     host_s, dev_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
-        host = cluster_families(frag, cfg, self_cmp, device_min_edges=1 << 62,
-                                device="cuda")
+        host = cluster_families(frag, cfg, self_cmp,
+                                device_min_fragments=1 << 62, device="cuda")
         host_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with trace.span("families.propagate") as sid:
-        got = tcluster.cluster_families_device(n, fidx, counts, lo, lens,
-                                               pct, total, "cuda")
+    with trace.job() as job_id:
+        got = cluster_families(frag, cfg, self_cmp, device_min_fragments=0,
+                               device="cuda")
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    stats = next(s["counters"] for s in trace.spans() if s["id"] == sid)
-    check(np.array_equal(got, host), f"{what}: device labels differ")
+    stats = next(s["counters"] for s in trace.spans()
+                 if s["job"] == job_id and s["name"] == "families.propagate")
+    check(stats["path"] == 1 and np.array_equal(got, host),
+          f"{what}: device labels differ")
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = cluster_families(frag, cfg, self_cmp, device_min_edges=0,
+        got = cluster_families(frag, cfg, self_cmp, device_min_fragments=0,
                                device="cuda")
         dev_s.append(time.perf_counter() - t0)
         check(np.array_equal(got, host), f"{what}: device labels differ")
     row = {"fragments": n, "edges": total, "kept": stats["edges"],
-           "rounds": stats["rounds"], "families": int(np.unique(host).shape[0]),
+           "blocks": stats["blocks"], "rounds": stats["rounds"],
+           "families": int(np.unique(host).shape[0]),
            "host_s": statistics.median(host_s),
            "device_s": statistics.median(dev_s), "table_s": table_s,
            "peak_mib": peak}
-    print(f"# clustering, {what}: {n} fragments, {total} edges, {row['kept']} "
-          f"after the ratio filter, {row['rounds']} rounds, {row['families']} "
-          f"families; host path {row['host_s']:.6f} s "
-          f"{[round(t, 6) for t in host_s]}, device path "
-          f"{row['device_s']:.6f} s {[round(t, 6) for t in dev_s]} (its "
-          f"interval table on the host {table_s:.6f} s), device peak "
-          f"{peak:.1f} MiB; labels equal on {smi}")
+    print(f"# clustering, {what}: {n} fragments, {total} edges in "
+          f"{row['blocks']} blocks, {row['kept']} after the ratio filter, "
+          f"{row['rounds']} rounds, {row['families']} families; host path "
+          f"{row['host_s']:.6f} s {[round(t, 6) for t in host_s]} (its "
+          f"interval table {table_s:.6f} s), device path "
+          f"{row['device_s']:.6f} s {[round(t, 6) for t in dev_s]}, device "
+          f"peak {peak:.1f} MiB above the entry; labels equal on {smi}")
     return row
 
 
 def phase_clustering(tables: list, codes: np.ndarray, fused: dict,
                      smi: str) -> None:
     """Phase 16: cluster_both_paths on every output table and pileup; then
-    device.compare on the banded headline with REPKILLER_DEVICE_CLUSTER=1,
-    launches counted, against phase 5's output, with the path it took."""
+    device.compare on the banded headline with the default rule, launches
+    counted, against phase 5's output and the host path's labels, with the
+    path it took, its edges and blocks."""
     rows = {}
     for what, frag, cfg, self_cmp in tables:
         rows[what] = cluster_both_paths(what, frag, cfg, self_cmp, smi)
@@ -1292,33 +1293,29 @@ def phase_clustering(tables: list, codes: np.ndarray, fused: dict,
         f"{w}: {r['edges']} edges, {r['device_s']:.6f} vs {r['host_s']:.6f}"
         for w, r in rows.items()))
 
-    calls = []
-    device_path = tcluster.cluster_families_device
-
-    def spy(*args, **kw):
-        calls.append(str(args[7]))
-        return device_path(*args, **kw)
-
-    tcluster.cluster_families_device = spy
-    os.environ["REPKILLER_DEVICE_CLUSTER"] = "1"
-    try:
-        reset_launches()
-        t0 = time.perf_counter()
+    reset_launches()
+    t0 = time.perf_counter()
+    with trace.job() as job_id:
         frag = tdevice.compare(codes, None, HEADLINE_CFG, "cuda")
-        wall = time.perf_counter() - t0
-        counted = launches()
-    finally:
-        del os.environ["REPKILLER_DEVICE_CLUSTER"]
-        tcluster.cluster_families_device = device_path
-    check_same(frag, fused, "banded headline with REPKILLER_DEVICE_CLUSTER=1")
+    wall = time.perf_counter() - t0
+    counted = launches()
+    stats = next(s["counters"] for s in trace.spans()
+                 if s["job"] == job_id and s["name"] == "families.propagate")
+    check_same(frag, fused, "banded headline with the default rule")
+    host = cluster_families({f: v for f, v in fused.items() if f != "group"},
+                            HEADLINE_CFG, True, device_min_fragments=1 << 62)
+    check(np.array_equal(frag["group"], host),
+          "the default rule's labels differ from the host path's")
     check(counted["banded"] > 0, f"the headline launched {counted}")
-    edges = rows["banded headline"]["edges"]
-    took = "device" if calls else "host"
-    check(took == ("device" if edges >= tcluster.DEVICE_MIN_EDGES else "host"),
-          f"REPKILLER_DEVICE_CLUSTER=1 took the {took} path at {edges} edges")
-    print(f"# banded headline with REPKILLER_DEVICE_CLUSTER=1: the {took} "
-          f"path ({edges} edges, threshold {tcluster.DEVICE_MIN_EDGES}); "
-          f"output equal to phase 5's field for field; wall {wall:.6f} s, "
+    n = frag["xStart"].shape[0]
+    want = 1 if n >= tcluster.DEVICE_MIN_FRAGMENTS else 0
+    check(stats["path"] == want,
+          f"the default rule took path {stats['path']} at {n} fragments")
+    print(f"# banded headline with the default rule: path {stats['path']} "
+          f"({n} fragments, threshold {tcluster.DEVICE_MIN_FRAGMENTS}; "
+          f"{stats['edges']} edges kept, {stats['blocks']} blocks, "
+          f"{stats['rounds']} rounds); output equal to phase 5's field for "
+          f"field and labels to the host path's; wall {wall:.6f} s, "
           f"launches {counted} on {smi}")
 
 

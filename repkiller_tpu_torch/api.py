@@ -175,8 +175,8 @@ def group_fragments(frags_csv, cfg: Config = DEFAULT, self_cmp: bool = True,
                     *, device="cuda") -> Dict[str, np.ndarray]:
     """Read a fragments CSV, cluster it into repeat families and return the
     canonical-sorted fragment dict with a fresh "group" column. The
-    clustering runs on the host unless families/cluster.py's device path
-    is requested (REPKILLER_DEVICE_CLUSTER=1), which runs on ``device``."""
+    clustering runs on ``device`` when it is a CUDA device with a GPU and
+    the table is large enough (families/cluster.py), else on the host."""
     frag = csv_writer.read_frags_csv(frags_csv)
     frag.pop("_meta", None)
     frag = orc.canonical_sort(frag)

@@ -1,13 +1,13 @@
 """Vectorized repeat-family clustering (repkiller proper — SURVEY.md §2.1
 "Grouping heuristics"): the port's copy of repkiller_tpu/families/cluster.py,
-with the reference's opt-in device propagation (families/device.py) on the
-run's torch device.
+with the whole layer on the run's CUDA device for tables large enough
+(families/device.py).
 
 Semantics are DEFINED by oracle.pipeline.cluster_families (sweep + union-
-find); this is the production implementation: numpy-vectorized edge
-construction (sorted intervals + searchsorted neighbor ranges, the
-capacity-free two-pass expansion) and min-label propagation with pointer
-jumping — O(E) memory, O((E+n) log n) work, no Python per-fragment loop.
+find); this is the production implementation: vectorized edge
+construction (sorted intervals + searchsorted neighbor ranges, edges
+expanded in bounded blocks) and min-label propagation with pointer
+jumping — O(E) work a round, bounded memory, no Python per-fragment loop.
 It matches the oracle bit-identically: the oracle's union-by-smaller-index
 makes every union-find root the minimum member index, which is exactly the
 fixpoint of min-label propagation.
@@ -20,7 +20,6 @@ ratio-compatible: min(la,lb)*100 >= round(len_ratio*100)*max(la,lb).
 
 from __future__ import annotations
 
-import os
 from typing import Dict
 
 import numpy as np
@@ -34,27 +33,33 @@ from .device import cluster_families_device
 
 EDGE_CHUNK = 1 << 22   # edges materialised at once (~64 MB of working set)
 
-# Edge-count bounds of the on-device propagation path (families/device.py),
-# the reference's. Its default is the host path everywhere: on a TPU v5e
-# the device path lost at every scale measured there. It is taken only on
-# request, by REPKILLER_DEVICE_CLUSTER=1 on a CUDA device or by
-# device_min_edges, and at most DEVICE_EDGE_CAP edges are materialised.
-DEVICE_MIN_EDGES = 1 << 18
-DEVICE_EDGE_CAP = 1 << 25
+# Fragments from which a CUDA device clusters on the card. Below it the
+# host path is faster, as the device path's launches and its sync a round
+# cost more than the host's work. The crossover, on an NVIDIA H100 80GB
+# HBM3 at 700 W (random tables of about 8 edges a fragment, medians of 7
+# calls; PERF.md, chip run F1): the host took 1.73 ms and the device
+# 2.23 ms at 1,000 fragments, 5.41 and 3.57 ms at 2,000.
+DEVICE_MIN_FRAGMENTS = 1 << 11
 
 
-def _device_cluster_enabled(device) -> bool:
-    """Opt-in only, read on every call; a CPU device never takes the
-    device path (the reference's CPU backend never does either)."""
-    if os.environ.get("REPKILLER_DEVICE_CLUSTER", "0") != "1":
+def _takes_device_path(frag: Dict[str, np.ndarray], device,
+                       device_min_fragments: int) -> bool:
+    """The device path for a table of at least ``device_min_fragments``
+    fragments on a CUDA device with a GPU, or on any device when
+    ``device_min_fragments`` is 0; never when a length times 100 leaves
+    int32 (the reference's condition)."""
+    if int(frag["length"].max(initial=0)) >= (1 << 31) // 100:
         return False
-    return torch.device(device).type == "cuda"
+    if device_min_fragments == 0:
+        return True
+    return (torch.device(device).type == "cuda" and torch.cuda.is_available()
+            and frag["xStart"].shape[0] >= device_min_fragments)
 
 
 def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
-    """Sorted interval table + per-interval neighbor ranges (shared by the
-    host-streamed and device paths). Returns (fidx, counts, offs, lo,
-    lens, pct, total, csum) in the (space, start, end, fidx) lex order."""
+    """Sorted interval table + per-interval neighbor ranges, on the host.
+    Returns (fidx, counts, offs, lo, lens, pct, total, csum) in the
+    (space, start, end, fidx) lex order."""
     space, start, end, fidx = orc._intervals_of(frag, self_cmp)
     order = np.lexsort((fidx, end, start, space))
     space, start, end, fidx = (space[order], start[order], end[order],
@@ -64,7 +69,8 @@ def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
     # neighbor ranges: i links to j in (i, hi_i): same space and
     # start_j <= end_i + proximity. `start` is only sorted WITHIN a
     # space, so bisect on the composite (space, start) key.
-    big = np.int64(max(int(end.max()) + cfg.proximity, int(start.max())) + 2)
+    big = np.int64(max(int(end.max(initial=0)) + cfg.proximity,
+                       int(start.max(initial=0))) + 2)
     key = space.astype(np.int64) * big + start
     q = space.astype(np.int64) * big + np.minimum(
         end + np.int64(cfg.proximity), big - 1)
@@ -81,7 +87,7 @@ def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
 
 def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
                      self_cmp: bool, edge_chunk: int = EDGE_CHUNK,
-                     device_min_edges: int = DEVICE_MIN_EDGES, *,
+                     device_min_fragments: int = DEVICE_MIN_FRAGMENTS, *,
                      device="cuda") -> np.ndarray:
     """Family id per fragment = smallest member index (canonical order).
 
@@ -90,35 +96,31 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config,
 
     Memory is bounded: the edge list (sum of neighbor-range counts —
     quadratic in the worst dense pileup, though max_occ bounds realistic
-    family sizes) is never materialised whole. Edges stream in
-    ``edge_chunk`` blocks, regenerated per propagation round from the
-    O(m) range arrays; min-label propagation reaches the same fixpoint
-    (the per-component minimum) for any edge processing order, so the
-    result is bit-identical to the oracle's union-find for any chunk
-    size.
+    family sizes) is never materialised whole. Edges are expanded in
+    ``edge_chunk`` blocks, kept while they fit a few blocks and otherwise
+    regenerated per propagation round from the O(m) range arrays;
+    min-label propagation reaches the same fixpoint (the per-component
+    minimum) for any edge processing order, so the result is
+    bit-identical to the oracle's union-find for any chunk size.
 
-    The edges go to ``device`` (families/device.py) instead when the
-    table has between ``device_min_edges`` and DEVICE_EDGE_CAP edges, its
-    lengths times 100 fit int32, and either ``device_min_edges`` is 0 or
-    REPKILLER_DEVICE_CLUSTER=1 and ``device`` is a CUDA device. That path
-    gives the same labels; on a CUDA device without a GPU it raises.
+    On a CUDA ``device`` with a GPU, a table of at least
+    ``device_min_fragments`` fragments is clustered there, table and all
+    (families/device.py); below it, and on any other device, on the host.
+    ``device_min_fragments`` 0 takes the device path on any device, which
+    raises on a CUDA device without a GPU. Both paths give the same
+    labels.
     """
     n = frag["xStart"].shape[0]
     with trace.span("families"):
         trace.count("fragments", n)
         if n == 0:
             return np.zeros(0, np.int32)
+        if _takes_device_path(frag, device, device_min_fragments):
+            return cluster_families_device(frag, cfg, self_cmp, device,
+                                           edge_chunk)
         with trace.span("families.edges"):
             fidx, counts, offs, lo, lens, pct, total, csum = _edge_ranges(
                 frag, cfg, self_cmp)
-        if (device_min_edges <= total <= DEVICE_EDGE_CAP
-                and int(lens.max(initial=0)) < (1 << 31) // 100
-                and (device_min_edges == 0
-                     or _device_cluster_enabled(device))):
-            with trace.span("families.propagate", device=device):
-                trace.count("path", 1)
-                return cluster_families_device(n, fidx, counts, lo, lens,
-                                               pct, total, device)
         with trace.span("families.propagate"):
             trace.count("path", 0)
             return _propagate_host(n, fidx, counts, offs, lo, lens, pct,
@@ -129,9 +131,10 @@ def _propagate_host(n: int, fidx, counts, offs, lo, lens, pct, total: int,
                     csum, edge_chunk: int) -> np.ndarray:
     """cluster_families' host path from the interval table of
     _edge_ranges: edges streamed in ``edge_chunk`` blocks, min-label
-    propagation to the fixpoint; the kept edges and the rounds go to the
-    trace."""
+    propagation to the fixpoint; the kept edges, the rounds and the
+    round-1 blocks go to the trace."""
     if not total:
+        trace.count("blocks", 0)
         trace.count("edges", 0)
         trace.count("rounds", 0)
         return np.arange(n, dtype=np.int32)
@@ -147,6 +150,7 @@ def _propagate_host(n: int, fidx, counts, offs, lo, lens, pct, total: int,
         bounds = np.unique(np.concatenate([[0], cut + 1, [m]]))
     else:
         bounds = np.array([0, m], dtype=np.int64)
+    trace.count("blocks", bounds.shape[0] - 1)
 
     def gen_block(i0: int, i1: int):
         """Filtered (ea, eb) for source intervals [i0, i1) — pure

@@ -529,32 +529,63 @@ def test_device_clustering_on_card_matches_host(gpu, seed, n, self_cmp):
     for cfg in CLUSTER_CONFIGS:
         host = tcluster.cluster_families(frag, cfg, self_cmp, device="cpu")
         got = tcluster.cluster_families(frag, cfg, self_cmp,
-                                        device_min_edges=0, device=gpu)
+                                        device_min_fragments=0, device=gpu)
         assert got.dtype == np.int32 and np.array_equal(got, host)
 
 
 def test_device_clustering_on_card_dense_pileup(gpu):
     frag, cfg = pileup_frags(), Config(proximity=50)
-    got = tcluster.cluster_families(frag, cfg, True, device_min_edges=0,
+    got = tcluster.cluster_families(frag, cfg, True, device_min_fragments=0,
                                     device=gpu)
     assert np.array_equal(got, torc.cluster_families(frag, cfg, True))
 
 
-def test_env_switch_clusters_on_the_card(gpu, monkeypatch):
-    """REPKILLER_DEVICE_CLUSTER=1 sends a table in range to the card;
-    unset, the host path runs; both give the same labels."""
-    frag, cfg = random_frags(5000, 10), Config(proximity=5, len_ratio=0.9)
+def _spy_device_path(monkeypatch) -> list:
+    """Records the device of each call of the device path, then runs it."""
     calls = []
     device_path = tcluster.cluster_families_device
 
-    def spy(*args, **kw):
-        calls.append(torch.device(args[7]).type)
-        return device_path(*args, **kw)
+    def spy(frag, cfg, self_cmp, device, *args):
+        calls.append(torch.device(device).type)
+        return device_path(frag, cfg, self_cmp, device, *args)
 
     monkeypatch.setattr(tcluster, "cluster_families_device", spy)
-    monkeypatch.delenv("REPKILLER_DEVICE_CLUSTER", raising=False)
-    host = tcluster.cluster_families(frag, cfg, True, device=gpu)
-    assert calls == []
-    monkeypatch.setenv("REPKILLER_DEVICE_CLUSTER", "1")
-    got = tcluster.cluster_families(frag, cfg, True, device=gpu)
+    return calls
+
+
+@pytest.mark.parametrize("seed,n,self_cmp", [
+    (11, 5000, True), (12, 5000, False), (13, 20000, True),
+])
+def test_default_rule_clusters_on_the_card(gpu, monkeypatch, seed, n,
+                                           self_cmp):
+    """On the card the default rule sends a table of DEVICE_MIN_FRAGMENTS
+    fragments or more to the device path, and a smaller one to the host
+    path; the labels equal the host path's either way."""
+    calls = _spy_device_path(monkeypatch)
+    frag = random_frags(n, seed, L=80 * n)
+    small = {f: v[:tcluster.DEVICE_MIN_FRAGMENTS - 1] for f, v in frag.items()}
+    for cfg in CLUSTER_CONFIGS:
+        for table in (frag, small):
+            host = tcluster.cluster_families(table, cfg, self_cmp,
+                                             device="cpu")
+            got = tcluster.cluster_families(table, cfg, self_cmp, device=gpu)
+            assert got.dtype == np.int32 and np.array_equal(got, host)
+    big = n >= tcluster.DEVICE_MIN_FRAGMENTS
+    assert calls == ["cuda"] * len(CLUSTER_CONFIGS) * big
+
+
+def test_chr1_sized_table_clusters_on_the_card_in_blocks(gpu, monkeypatch):
+    """A synthetic table of 2.25M fragments at chr1's density (its
+    fragments over 249 Mbp) takes the device path by default, in several
+    edge blocks, and gives the host path's labels."""
+    calls = _spy_device_path(monkeypatch)
+    frag, cfg = random_frags(2_250_000, 14, L=248_956_422), Config()
+    *_, total, _ = tcluster._edge_ranges(frag, cfg, True)
+    with trace.job() as job_id:
+        got = tcluster.cluster_families(frag, cfg, True, device=gpu)
+    host = tcluster.cluster_families(frag, cfg, True, device="cpu")
     assert calls == ["cuda"] and np.array_equal(got, host)
+    counts = next(s["counters"] for s in trace.spans()
+                  if s["job"] == job_id and s["name"] == "families.propagate")
+    assert counts["path"] == 1
+    assert counts["blocks"] == -(-total // tcluster.EDGE_CHUNK) > 1

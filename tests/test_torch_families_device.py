@@ -1,8 +1,8 @@
 """The port's on-device family clustering (families/device.py), run on the
 CPU, against the JAX package's forced device path, the oracle union-find
-and the port's streamed host path; and the conditions under which
-families/cluster.py takes it, which are the reference's. Labels: exact
-equality."""
+and the port's streamed host path: its interval table against the host's,
+its blocked edge expansion at several block sizes, and the rule by which
+families/cluster.py takes it. Labels and tables: exact equality."""
 
 import dataclasses
 
@@ -17,6 +17,7 @@ from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.dist import sharded as tsharded, windows as twindows
 from repkiller_tpu_torch.dist.mesh import make_mesh
 from repkiller_tpu_torch.families import cluster as tcluster
+from repkiller_tpu_torch.families import device as tfdevice
 from repkiller_tpu_torch.families.device import cluster_families_device
 from repkiller_tpu_torch.oracle import pipeline as torc
 from repkiller_tpu_torch.report import csv_writer as tcsv
@@ -34,12 +35,13 @@ def _ref(cfg: Config) -> JConfig:
 
 
 def _all_paths_agree(frag, cfg, self_cmp):
-    got = tcluster.cluster_families(frag, cfg, self_cmp, device_min_edges=0,
-                                    device="cpu")
+    got = tcluster.cluster_families(frag, cfg, self_cmp,
+                                    device_min_fragments=0, device="cpu")
     want = jcluster.cluster_families(frag, _ref(cfg), self_cmp,
                                      device_min_edges=0)
     host = tcluster.cluster_families(frag, cfg, self_cmp,
-                                     device_min_edges=1 << 62, device="cpu")
+                                     device_min_fragments=1 << 62,
+                                     device="cpu")
     assert got.dtype == want.dtype == np.int32
     assert np.array_equal(got, want)
     assert np.array_equal(got, host)
@@ -52,9 +54,9 @@ def device_calls(monkeypatch):
     """Records each call of the device path (its device), then runs it."""
     calls = []
 
-    def spy(*args, **kw):
-        calls.append(args[7])
-        return cluster_families_device(*args, **kw)
+    def spy(frag, cfg, self_cmp, device, *args):
+        calls.append(str(device))
+        return cluster_families_device(frag, cfg, self_cmp, device, *args)
 
     monkeypatch.setattr(tcluster, "cluster_families_device", spy)
     return calls
@@ -92,6 +94,7 @@ def test_forced_device_path_over_a_million_edges(cfg):
     for c in (device, host):
         assert 0 < c["edges"] <= total and c["rounds"] >= 2
     assert device["edges"] == host["edges"]
+    assert device["blocks"] == host["blocks"] == 1
 
 
 def _propagate_counters(job_id: int) -> list:
@@ -110,69 +113,157 @@ def test_no_edges_gives_every_fragment_its_own_family():
             "length": np.full(5, 100, np.int32),
             "score": np.full(5, 100, np.int32),
             "idents": np.full(5, 100, np.int32)}
-    for min_edges, path in ((0, 1), (1 << 62, 0)):
+    for min_fragments, path in ((0, 1), (1 << 62, 0)):
         with trace.job() as job_id:
             lab = tcluster.cluster_families(frag, Config(), True,
-                                            device_min_edges=min_edges,
+                                            device_min_fragments=min_fragments,
                                             device="cpu")
         assert np.array_equal(lab, np.arange(5, dtype=np.int32))
         assert _propagate_counters(job_id) == [
-            {"path": path, "edges": 0, "rounds": 0}]
+            {"path": path, "blocks": 0, "edges": 0, "rounds": 0}]
 
 
-def test_env_switch_on_a_cpu_device_keeps_the_host_path(monkeypatch,
-                                                        device_calls):
-    frag = random_frags(5000, 10)
-    cfg = Config(proximity=5, len_ratio=0.9)
-    *_, total, _ = tcluster._edge_ranges(frag, cfg, True)
-    assert tcluster.DEVICE_MIN_EDGES <= total <= tcluster.DEVICE_EDGE_CAP
-    monkeypatch.setenv("REPKILLER_DEVICE_CLUSTER", "1")
+def _tied_frags(n: int = 60, seed: int = 4):
+    """Fragments whose intervals tie in (space, start, end) across
+    fragments and across their x and y copies: starts from three values,
+    lengths from two."""
+    rng = np.random.default_rng(seed)
+    xs = rng.choice([0, 40, 80], n).astype(np.int32)
+    ys = rng.choice([0, 40, 80], n).astype(np.int32)
+    ln = rng.choice([50, 60], n).astype(np.int32)
+    rev = rng.integers(0, 2, n).astype(np.int32)
+    frag = {"xStart": xs, "xEnd": xs + ln - 1,
+            "yStart": np.where(rev == 1, ys + ln - 1, ys).astype(np.int32),
+            "yEnd": np.where(rev == 1, ys, ys + ln - 1).astype(np.int32),
+            "strand": rev, "length": ln,
+            "score": np.full(n, 100, np.int32),
+            "idents": np.full(n, 90, np.int32)}
+    return torc.canonical_sort(frag)
+
+
+def _one_frag():
+    """One fragment whose x and y copies overlap."""
+    vals = {"xStart": 100, "xEnd": 199, "yStart": 150, "yEnd": 249,
+            "strand": 0, "length": 100, "score": 400, "idents": 100}
+    return {f: np.array([v], np.int32) for f, v in vals.items()}
+
+
+TABLES = {
+    "self": lambda: (random_frags(800, 8), Config(), True),
+    "pair": lambda: (random_frags(800, 8), Config(), False),
+    "empty": lambda: (random_frags(0, 9), Config(), True),
+    "single": lambda: (_one_frag(), Config(), True),
+    "ties_self": lambda: (_tied_frags(), Config(), True),
+    "ties_pair": lambda: (_tied_frags(), Config(len_ratio=0.9), False),
+    "pileup": lambda: (pileup_frags(), Config(proximity=50), True),
+}
+
+
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_device_interval_table_matches_host(table):
+    """The interval table built with torch ops (order, neighbour ranges,
+    counts, offsets, running sum, edge total) equals _edge_ranges'."""
+    frag, cfg, self_cmp = TABLES[table]()
+    want = tcluster._edge_ranges(frag, cfg, self_cmp)
+    got = tfdevice.edge_ranges_device(frag, cfg, self_cmp, "cpu")
+    names = ("fidx", "counts", "offs", "lo", "lens", "pct", "total", "csum")
+    for name, w, g in zip(names, want, got):
+        g = g.numpy() if torch.is_tensor(g) else g
+        assert np.array_equal(np.asarray(w), np.asarray(g)), name
+    if table == "single":
+        assert want[6] == 1          # its own x and y copies overlap
+    if table.startswith("ties"):
+        assert want[6] > 0
+
+
+def _small_pileup():
+    return {f: v[:80] for f, v in pileup_frags().items()}
+
+
+@pytest.mark.parametrize("chunk,kept_blocks", [
+    (1, 8), (7, 8), (7, 1 << 40), (1 << 22, 8), (1 << 22, 0)],
+    ids=["1", "7", "7-kept", "2^22", "2^22-tiny-budget"])
+@pytest.mark.parametrize("table", ["self", "pair", "pileup"])
+def test_blocked_expansion_matches_host(chunk, kept_blocks, table,
+                                        monkeypatch):
+    """The device path at several edge-block sizes gives the host path's
+    labels and kept edges, in ceil(total / chunk) blocks a round. While
+    the kept edges fit KEPT_BLOCKS blocks the blocks are expanded once;
+    past that (a tiny budget) every round expands them anew."""
+    frag, cfg, self_cmp = {
+        "self": lambda: (random_frags(120, 21), Config(), True),
+        "pair": lambda: (random_frags(160, 22), Config(), False),
+        "pileup": lambda: (_small_pileup(), Config(proximity=50), True),
+    }[table]()
+    *_, total, _ = tcluster._edge_ranges(frag, cfg, self_cmp)
+    expanded = []
+    block = tfdevice.edge_block
+
+    def spy(*args):
+        expanded.append(args[-2])
+        return block(*args)
+
+    monkeypatch.setattr(tfdevice, "edge_block", spy)
+    monkeypatch.setattr(tfdevice, "KEPT_BLOCKS", kept_blocks)
+    with trace.job() as job_id:
+        got = tcluster.cluster_families(frag, cfg, self_cmp, chunk, 0,
+                                        device="cpu")
+        host = tcluster.cluster_families(frag, cfg, self_cmp, chunk,
+                                         1 << 62, device="cpu")
+    assert np.array_equal(got, host)
+    assert np.array_equal(got, torc.cluster_families(frag, cfg, self_cmp))
+    device, host_c = _propagate_counters(job_id)
+    blocks = -(-total // chunk)
+    assert total > 100 and device["blocks"] == blocks
+    assert device["edges"] == host_c["edges"] > 0
+    cached = device["edges"] <= kept_blocks * chunk
+    assert len(expanded) == blocks * (1 if cached else device["rounds"])
+    assert expanded[:blocks] == list(range(0, total, chunk))
+
+
+def test_default_rule_on_a_cpu_device_keeps_the_host_path(device_calls):
+    """On a CPU device the default rule never takes the device path,
+    whatever the table's size."""
+    n = tcluster.DEVICE_MIN_FRAGMENTS
+    frag, cfg = random_frags(n, 10, L=80 * n), Config()
     got = tcluster.cluster_families(frag, cfg, True, device="cpu")
     assert device_calls == []
     assert np.array_equal(got, jcluster.cluster_families(frag, _ref(cfg), True))
 
 
-def test_env_switch_on_cuda_takes_the_device_path(monkeypatch, device_calls):
-    """On a CUDA device the switch, read on every call, picks the device
-    path for a table in range, which raises without a GPU; unset, or
-    below DEVICE_MIN_EDGES, the host path runs and nothing raises."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    big, small = random_frags(5000, 10), random_frags(300, 7)
-    cfg = Config(proximity=5, len_ratio=0.9)
-    want = tcluster.cluster_families(big, cfg, True, device="cpu")
-    monkeypatch.delenv("REPKILLER_DEVICE_CLUSTER", raising=False)
-    assert np.array_equal(tcluster.cluster_families(big, cfg, True), want)
-    monkeypatch.setenv("REPKILLER_DEVICE_CLUSTER", "0")
-    assert np.array_equal(tcluster.cluster_families(big, cfg, True), want)
-    monkeypatch.setenv("REPKILLER_DEVICE_CLUSTER", "1")
-    assert np.array_equal(tcluster.cluster_families(small, cfg, True),
-                          torc.cluster_families(small, cfg, True))
-    assert device_calls == []
-    with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        tcluster.cluster_families(big, cfg, True, device="cuda")
-    assert device_calls == ["cuda"]
+@pytest.mark.parametrize("available", [False, True])
+def test_default_rule_on_cuda(monkeypatch, available):
+    """On a CUDA device the default rule takes the device path from
+    DEVICE_MIN_FRAGMENTS fragments when a GPU is there (the spy runs it
+    on the CPU), and the host path below it or without a GPU, where
+    nothing raises; forcing the device path without a GPU raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: available)
+    calls = []
+
+    def spy(frag, cfg, self_cmp, device, *args):
+        calls.append(str(device))
+        return cluster_families_device(frag, cfg, self_cmp, "cpu", *args)
+
+    monkeypatch.setattr(tcluster, "cluster_families_device", spy)
+    threshold = tcluster.DEVICE_MIN_FRAGMENTS
+    big = random_frags(threshold, 10, L=80 * threshold)
+    small = {f: v[:threshold - 1] for f, v in big.items()}
+    cfg = Config()
+    for frag in (small, big):
+        assert np.array_equal(tcluster.cluster_families(frag, cfg, True),
+                              torc.cluster_families(frag, cfg, True))
+    assert calls == (["cuda"] if available else [])
+    if not available:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            cluster_families_device(small, cfg, True, "cuda", 1 << 22)
 
 
 def test_forced_device_path_on_cuda_without_a_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     frag = random_frags(300, 7)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        tcluster.cluster_families(frag, Config(), True, device_min_edges=0)
-
-
-def test_edge_cap_keeps_the_host_path(monkeypatch, device_calls):
-    frag = random_frags(800, 8)
-    cfg = Config()
-    *_, total, _ = tcluster._edge_ranges(frag, cfg, False)
-    monkeypatch.setattr(tcluster, "DEVICE_EDGE_CAP", total - 1)
-    got = tcluster.cluster_families(frag, cfg, False, device_min_edges=0,
-                                    device="cpu")
-    assert device_calls == []
-    monkeypatch.setattr(tcluster, "DEVICE_EDGE_CAP", total)
-    assert np.array_equal(tcluster.cluster_families(
-        frag, cfg, False, device_min_edges=0, device="cpu"), got)
-    assert device_calls == ["cpu"]
-    assert np.array_equal(got, torc.cluster_families(frag, cfg, False))
+        tcluster.cluster_families(frag, Config(), True,
+                                  device_min_fragments=0)
 
 
 def test_length_guard_keeps_the_host_path(device_calls):
@@ -182,13 +273,13 @@ def test_length_guard_keeps_the_host_path(device_calls):
     frag["length"] = frag["length"].copy()
     frag["length"][:5] = (1 << 31) // 100
     cfg = Config(len_ratio=0.0)
-    got = tcluster.cluster_families(frag, cfg, True, device_min_edges=0,
+    got = tcluster.cluster_families(frag, cfg, True, device_min_fragments=0,
                                     device="cpu")
     assert device_calls == []
     assert np.array_equal(got, torc.cluster_families(frag, cfg, True))
     frag["length"][:5] = (1 << 31) // 100 - 1
     assert np.array_equal(tcluster.cluster_families(
-        frag, cfg, True, device_min_edges=0, device="cpu"), got)
+        frag, cfg, True, device_min_fragments=0, device="cpu"), got)
     assert device_calls == ["cpu"]
 
 

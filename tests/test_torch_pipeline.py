@@ -214,8 +214,7 @@ def test_port_never_imports_jax(tmp_path):
     code = NO_JAX.format(root=str(ROOT), tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
-                          env={**os.environ, "REPKILLER_DEVICE_CLUSTER": "1",
-                               "OMP_NUM_THREADS": "1"})  # as _torch_threads
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})  # as _torch_threads
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count(" fragments ") == 5, proc.stdout
     assert '"stage": "run"' in proc.stdout, proc.stdout

@@ -215,18 +215,27 @@ def test_sharded_spans(genome):
         "sharded.regroup", "sharded.extend", "sharded.merge"}
 
 
-@pytest.mark.parametrize("min_edges,path", [(1 << 62, 0), (0, 1)],
+@pytest.mark.parametrize("min_fragments,path", [(1 << 62, 0), (0, 1)],
                          ids=["host", "device"])
-def test_cluster_families_spans(genome, min_edges, path):
+@pytest.mark.parametrize("chunk", [1 << 22, 4])
+def test_cluster_families_spans(genome, min_fragments, path, chunk):
+    """The layer's spans and counters on either path: ``blocks`` counts
+    the edge blocks of round 1, one for a table under ``chunk`` edges."""
     frag = tdevice.compare(genome.codes, None, CFG, "cpu")
     lab, spans = _job(lambda: tcluster.cluster_families(
-        frag, CFG, True, device_min_edges=min_edges, device="cpu"))
+        frag, CFG, True, chunk, device_min_fragments=min_fragments,
+        device="cpu"))
     assert _names(spans) == FAMILIES
     by_name = {s["name"]: s for s in spans}
     assert by_name["families"]["counters"] == {"fragments": lab.shape[0]}
     counts = by_name["families.propagate"]["counters"]
     assert counts["path"] == path and counts["rounds"] >= 1
     assert counts["edges"] > 0
+    *_, total, _ = tcluster._edge_ranges(frag, CFG, True)
+    most = -(-total // chunk)          # the device path's, exactly
+    assert 1 <= counts["blocks"] <= most and (path == 0 or counts["blocks"]
+                                              == most)
+    assert (counts["blocks"] > 1) == (chunk < total)
 
 
 def test_writer_and_reader_spans(genome, tmp_path):
