@@ -50,8 +50,6 @@ Phases, each of which must pass (any failure exits non-zero):
      field; the rerun resumes from the stage files (no "seeds" or "extend"
      stage, no K1 launch) with the same output; walls without a store,
      staged and resumed;
-     then the device parts of compare_fn and of compare_staged without a
-     store, in turns;
   9. the streamed driver (dist/windows.compare_streamed) on the headline at
      window 2^20 (4 windows), banded and ungapped: equal to
      device.compare's output, window hit totals and seeds summing to the single-shot ones;
@@ -141,8 +139,8 @@ from repkiller_tpu_torch.dist.windows import compare_streamed
 from repkiller_tpu_torch.extend import _cuda, banded, ungapped
 from repkiller_tpu_torch.families import cluster as tcluster, cluster_families
 from repkiller_tpu_torch.io import fasta as tfasta, native
-from repkiller_tpu_torch.oracle import pipeline as orc
 from repkiller_tpu_torch.report import csv_writer, intervals as report_iv
+from repkiller_tpu_torch.table import family_stats, repeat_intervals
 from repkiller_tpu_torch.utils import synth, trace
 from repkiller_tpu_torch.utils.capacity import grow_capacity, with_auto_capacity
 from repkiller_tpu_torch.utils.scan import partition_live
@@ -533,7 +531,7 @@ def phase_headline(codes: np.ndarray, cx: torch.Tensor, cfg: Config, smi: str):
     device.compare, the third one counted -> that run's launch counts."""
     mode = cfg.extend_mode
     t0 = time.perf_counter()
-    out, n_frags, totals, n_seeds = tdevice.compare_fn(cx, None, cfg)
+    out, n_frags, totals, n_seeds = tdevice.compare_staged(cx, None, cfg)
     torch.cuda.synchronize()
     print(f"# {mode} headline first run (device part, incl. load): "
           f"{time.perf_counter() - t0:.3f} s")
@@ -595,7 +593,7 @@ def phase_profile(cx: torch.Tensor, cfg: Config, smi: str):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tdevice.compare_fn(cx, None, cfg)
+        tdevice.compare_staged(cx, None, cfg)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -736,7 +734,7 @@ def phase_k2_headline_sets(cx: torch.Tensor, smi: str, rate: float):
     version on the first set (strand f, anchors, right) -> that set's
     (worst error over all, ms, plain ms, bound ms, bound_by)."""
     kernel, recorded = record_launches(
-        "ungapped_xdrop", lambda: tdevice.compare_fn(cx, None, UNGAPPED_CFG))
+        "ungapped_xdrop", lambda: tdevice.compare_staged(cx, None, UNGAPPED_CFG))
     check(len(recorded) == 8, f"{len(recorded)} K2 launches, expected 8: 2 "
           "strands x (anchors, survivors) x 2 directions")
     worst = 0
@@ -809,7 +807,7 @@ def phase_pairwise(smi: str) -> dict:
         timings = {}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        _, n_frags, totals, n_seeds = tdevice.compare_fn(ca, cb, cfg, timings)
+        _, n_frags, totals, n_seeds = tdevice.compare_staged(ca, cb, cfg, timings)
         dev_wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(totals.tolist() == PAIR_HITS,
@@ -846,7 +844,7 @@ def check_same(got: dict, want: dict, what: str) -> None:
               f"{what}: field {f} differs from the single-shot output")
 
 
-def phase_staged(codes: np.ndarray, fused: dict, smi: str) -> dict:
+def phase_staged(codes: np.ndarray, single: dict, smi: str) -> dict:
     """The banded headline through device.compare with keep_intermediates:
     the staged run, then its resume from the stage files; both equal the
     run without a store -> the staged run's launch counts."""
@@ -865,7 +863,7 @@ def phase_staged(codes: np.ndarray, fused: dict, smi: str) -> dict:
             walls.append(time.perf_counter() - t0)
             counted.append(launches())
             stages.append(timings)
-            check_same(frag, fused, f"{run} banded headline")
+            check_same(frag, single, f"{run} banded headline")
         nbytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
     check(frag["xStart"].shape[0] == HEADLINE_FRAGS["banded"],
           "staged headline fragments")
@@ -880,25 +878,6 @@ def phase_staged(codes: np.ndarray, fused: dict, smi: str) -> dict:
         print(f"#   {run} stages { {k: round(v, 6) for k, v in timings.items()} }"
               f", launches {c}")
     print(f"#   stage files: {nbytes} bytes")
-    # the device parts of compare_fn and of compare_staged without a store,
-    # in turns: whether the fused path is worth keeping beside the staged
-    cx = torch.from_numpy(codes.copy()).cuda()
-    parts = {"fused": [], "staged": []}
-    for _ in range(5):
-        for name, fn in (("fused", tdevice.compare_fn),
-                         ("staged", tdevice.compare_staged)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, n_frags, _, _ = fn(cx, None, cfg)
-            torch.cuda.synchronize()
-            parts[name].append(time.perf_counter() - t0)
-            check(int(n_frags) == HEADLINE_FRAGS["banded"],
-                  f"{name} device part gave {int(n_frags)} fragments")
-    print(f"# banded headline device part, in turns, median of 5: fused "
-          f"{statistics.median(parts['fused']):.6f} s, staged without a store "
-          f"{statistics.median(parts['staged']):.6f} s on {smi}; fused "
-          f"{[round(v, 6) for v in parts['fused']]}, staged "
-          f"{[round(v, 6) for v in parts['staged']]}")
     return counted[0]
 
 
@@ -925,7 +904,7 @@ def streamed_run(x, y, cfg, what: str, want: dict, smi: str, **kw):
     return wall, stats, counted
 
 
-def phase_streamed_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
+def phase_streamed_headline(codes: np.ndarray, single: dict, smi: str) -> dict:
     """compare_streamed on the headline at window 2^20, both modes: in
     memory, then with out_dir, then resumed after the manifest's last two
     lines are dropped -> the in-memory runs' launch counts per mode."""
@@ -934,7 +913,7 @@ def phase_streamed_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
         cfg = HEADLINE_CFG.replace(extend_mode=mode)
         what = f"streamed {mode} headline"
         _, stats, counted[mode] = streamed_run(
-            codes, None, cfg, what, fused[mode], smi, window=HEADLINE_WINDOW)
+            codes, None, cfg, what, single[mode], smi, window=HEADLINE_WINDOW)
         check(stats["windows"] == 4, f"{what}: {stats['windows']} windows")
         check(stats["hit_totals"] == HEADLINE_HITS
               and stats["seed_counts"] == HEADLINE_SEEDS,
@@ -942,14 +921,14 @@ def phase_streamed_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
               f"{stats['seed_counts']} != the single-shot totals")
         check(counted[mode][mode] > 0, f"{what} launched {counted[mode]}")
         with tempfile.TemporaryDirectory() as tmp:
-            streamed_run(codes, None, cfg, what + " with out_dir", fused[mode],
+            streamed_run(codes, None, cfg, what + " with out_dir", single[mode],
                          smi, window=HEADLINE_WINDOW, out_dir=tmp)
             manifest = Path(tmp) / "manifest.jsonl"
             lines = manifest.read_text().splitlines()
             manifest.write_text("\n".join(lines[:-2]) + "\n")
             _, stats, c = streamed_run(
                 codes, None, cfg, what + " resumed (2 windows dropped)",
-                fused[mode], smi, window=HEADLINE_WINDOW, out_dir=tmp)
+                single[mode], smi, window=HEADLINE_WINDOW, out_dir=tmp)
             check(len(manifest.read_text().splitlines()) == len(lines) == 8,
                   f"{what}: the manifest was not restored")
             check(c[mode] > 0 and stats["hit_totals"][0] == 0,
@@ -1043,7 +1022,7 @@ def phase_stage_timing():
         print(f"# --stage-timing on golden30k: {json.dumps(r)}")
 
 
-def phase_sharded_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
+def phase_sharded_headline(codes: np.ndarray, single: dict, smi: str) -> dict:
     """compare_sharded on the headline at each mesh shape of SHARDED_SHAPES,
     one-process meshes of bodies all on the card, both modes, against
     device.compare's output -> {(mode, shape): launch counts}. A shape
@@ -1072,7 +1051,7 @@ def phase_sharded_headline(codes: np.ndarray, fused: dict, smi: str) -> dict:
                     used = grown[0]
             wall = time.perf_counter() - t0
             counted[(mode, shape)] = c = launches()
-            check_same(frag, fused[mode], what)
+            check_same(frag, single[mode], what)
             check(c[mode] > 0 and (mode == "banded" or c["banded"] == 0),
                   f"{what} launched {c}")
             print(f"# {what}: {frag['xStart'].shape[0]} fragments, equal to "
@@ -1119,7 +1098,7 @@ def phase_config2(smi: str) -> dict:
     frag, used, _, counted = big_run(
         "config #2 (device.compare)",
         lambda c: tdevice.compare(g.codes, None, c, "cuda"), BIG_CFG, smi)
-    stats = orc.family_stats(frag, frag["group"])
+    stats = family_stats(frag, frag["group"])
     got = {"fragments": int(frag["xStart"].shape[0]),
            "families": int(np.unique(frag["group"]).shape[0]),
            "largest family": int(stats["n_frags"].max())}
@@ -1131,7 +1110,7 @@ def phase_config2(smi: str) -> dict:
 def masking(codes: np.ndarray, frag: dict, cfg: Config) -> dict:
     """run_config4.py's masking counts: repeat intervals on X, and the bp
     that masking adds to the genome's Ns."""
-    iv = orc.repeat_intervals(frag, frag["group"], cfg, self_cmp=True)
+    iv = repeat_intervals(frag, frag["group"], cfg, self_cmp=True)
     masked = report_iv.mask_codes(codes, iv.get(0))
     return {"fragments": int(frag["xStart"].shape[0]),
             "repeat intervals": int(iv.get(0, np.zeros((0, 2))).shape[0]),
@@ -1274,7 +1253,7 @@ def cluster_both_paths(what: str, frag: dict, cfg: Config, self_cmp: bool,
     return row
 
 
-def phase_clustering(tables: list, codes: np.ndarray, fused: dict,
+def phase_clustering(tables: list, codes: np.ndarray, single: dict,
                      smi: str) -> None:
     """Phase 16: cluster_both_paths on every output table and pileup; then
     device.compare on the banded headline with the default rule, launches
@@ -1301,8 +1280,8 @@ def phase_clustering(tables: list, codes: np.ndarray, fused: dict,
     counted = launches()
     stats = next(s["counters"] for s in trace.spans()
                  if s["job"] == job_id and s["name"] == "families.propagate")
-    check_same(frag, fused, "banded headline with the default rule")
-    host = cluster_families({f: v for f, v in fused.items() if f != "group"},
+    check_same(frag, single, "banded headline with the default rule")
+    host = cluster_families({f: v for f, v in single.items() if f != "group"},
                             HEADLINE_CFG, True, device_min_fragments=1 << 62)
     check(np.array_equal(frag["group"], host),
           "the default rule's labels differ from the host path's")
@@ -1421,13 +1400,13 @@ def main() -> int:
 
     g = synth.plant(HEADLINE_SIZE, HEADLINE_FAMS, seed=1234)
     cx = torch.from_numpy(g.codes.copy()).to(dev)
-    k1_counted, fused_banded = phase_headline(g.codes, cx, HEADLINE_CFG, smi)
+    k1_counted, single_banded = phase_headline(g.codes, cx, HEADLINE_CFG, smi)
     check(k1_counted["banded"] > 0, "the banded headline did not launch K1")
     phase_profile(cx, HEADLINE_CFG, smi)
     err1b, k1_ms, k1_plain_ms, k1_bound, k1_by = phase_k1_headline_sets(
         cx, smi, rate)
 
-    k2_counted, fused_ungapped = phase_headline(g.codes, cx, UNGAPPED_CFG, smi)
+    k2_counted, single_ungapped = phase_headline(g.codes, cx, UNGAPPED_CFG, smi)
     check(k2_counted["ungapped"] > 0 and k2_counted["banded"] == 0,
           f"the ungapped headline launched {k2_counted}: K2 > 0 and K1 == 0 "
           "expected")
@@ -1441,24 +1420,24 @@ def main() -> int:
     check(pair_counted["ungapped"]["banded"] == 0,
           "config #3 ungapped launched K1")
 
-    phase_staged(g.codes, fused_banded, smi)
+    phase_staged(g.codes, single_banded, smi)
     phase_streamed_headline(
-        g.codes, {"banded": fused_banded, "ungapped": fused_ungapped}, smi)
+        g.codes, {"banded": single_banded, "ungapped": single_ungapped}, smi)
     phase_window_sets(g.codes, smi)
     phase_streamed_pair(*make_strain_pair(PAIR_SIZE, PAIR_SEED), pair_frags, smi)
     phase_stage_timing()
     phase_sharded_headline(
-        g.codes, {"banded": fused_banded, "ungapped": fused_ungapped}, smi)
+        g.codes, {"banded": single_banded, "ungapped": single_ungapped}, smi)
     frag2 = phase_config2(smi)
     codes4, frag4 = phase_config4(smi, rate)
     frag5 = phase_config5(smi)
     phase_clustering([
-        ("banded headline", fused_banded, HEADLINE_CFG, True),
+        ("banded headline", single_banded, HEADLINE_CFG, True),
         ("config #3 banded", pair_frags["banded"], PAIR_CFG, False),
         ("config #2", frag2, BIG_CFG, True),
         ("config #4", frag4, BIG_CFG, True),
         ("config #5 at 0.25x", frag5, CONFIG5_CFG, True)], g.codes,
-        fused_banded, smi)
+        single_banded, smi)
     phase_native_io(codes4, pair_frags["banded"], smi)
     print(f"# chip_smoke phases took {time.perf_counter() - t_start:.3f} s")
 

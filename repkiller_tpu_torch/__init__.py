@@ -5,10 +5,12 @@ extension), with both extension kernels hand-written in CUDA for Hopper
 
 The port imports nothing of ``repkiller_tpu``: it keeps its own copies of
 the host-only modules it needs, under the reference's module names
-(``config``, ``io/{codec,fasta}``, ``oracle/{pipeline,banded}``,
-``families/cluster`` (host path only), ``report/{csv_writer,intervals}``,
-``utils/{capacity,synth}``) and ``api.Result``. Public API:
-:func:`repkiller_tpu_torch.api.compare` and
+(``config``, ``io/{codec,fasta}``, ``families/cluster`` (host path only),
+``report/{csv_writer,intervals}``, ``utils/{capacity,synth}``) and
+``api.Result``. ``table`` holds the fragment table's format and rules;
+``oracle/{pipeline,banded}`` is the numpy semantics behind
+``backend="oracle"``, which production code does not otherwise use.
+Public API: :func:`repkiller_tpu_torch.api.compare` and
 :func:`repkiller_tpu_torch.api.group_fragments`; the command line is
 ``python -m repkiller_tpu_torch.cli``.
 """

@@ -23,6 +23,7 @@ from .families import cluster_families
 from .io import fasta
 from .oracle import pipeline as orc
 from .report import csv_writer, intervals as report_iv
+from .table import canonical_sort, repeat_intervals
 from .utils import trace
 
 SeqLike = Union[str, bytes, np.ndarray, fasta.SeqSet]
@@ -93,8 +94,8 @@ class Result:
         )
 
     def repeat_intervals(self) -> Dict[int, np.ndarray]:
-        return orc.repeat_intervals(self.frag, self.frag["group"], self.cfg,
-                                    self.self_cmp)
+        return repeat_intervals(self.frag, self.frag["group"], self.cfg,
+                                self.self_cmp)
 
     def write_intervals(self, dst) -> Dict[int, np.ndarray]:
         ys = self.x if self.self_cmp else self.y
@@ -179,6 +180,6 @@ def group_fragments(frags_csv, cfg: Config = DEFAULT, self_cmp: bool = True,
     the table is large enough (families/cluster.py), else on the host."""
     frag = csv_writer.read_frags_csv(frags_csv)
     frag.pop("_meta", None)
-    frag = orc.canonical_sort(frag)
+    frag = canonical_sort(frag)
     frag["group"] = cluster_families(frag, cfg, self_cmp, device=device)
     return frag

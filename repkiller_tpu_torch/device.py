@@ -9,8 +9,8 @@ Arrays are sized by the Config's capacities with validity masks; the true
 counts come back so that overflow raises instead of truncating. Output is
 the reference's, field for field.
 
-compare_staged runs the same stage functions one stage at a time, each
-ended by a device synchronisation, and can dump each stage's arrays and
+compare_staged is the stage sequence: it runs the stage functions one
+stage at a time, each a trace span, and can dump each stage's arrays and
 resume from them (utils/checkpoint.StageStore, ``keep_intermediates``).
 """
 
@@ -29,10 +29,10 @@ from .config import Config
 from .families import cluster_families
 from .index.build import build_index
 from .index.canonical import build_canonical_index
-from .oracle import pipeline as orc
 from .seeds.filter import filter_hits
 from .seeds.join import join_hits
 from .seeds.self_join import join_self_canonical
+from .table import empty
 from .utils import trace
 from .utils.checkpoint import StageStore, fingerprint
 
@@ -71,16 +71,6 @@ def thin_hits(hpx, hpy, hvalid, cfg: Config):
     svalid, n_seeds)."""
     return filter_hits(hpx, hpy, hvalid, cfg.min_hit_dist,
                        out_capacity=cfg.seed_cap)
-
-
-def pair_seeds_fn(idx_x, cy_cmp: torch.Tensor, cfg: Config):
-    """Pairwise seeds of one strand: X's sorted index ``idx_x`` joined with
-    that of ``cy_cmp`` (Y, or revcomp(Y) for strand r), then thinned ->
-    (spx, spy, svalid, n_seeds, total_hits). The seeding half of the
-    reference's ``_one_strand``."""
-    hpx, hpy, hvalid, total = pair_join(idx_x, build_index(cy_cmp, cfg.k),
-                                        cy_cmp.shape[0], cfg)
-    return thin_hits(hpx, hpy, hvalid, cfg) + (total,)
 
 
 def extend_strand(spx, spy, svalid, n_seeds, cx: torch.Tensor,
@@ -124,47 +114,17 @@ class StageTimer:
                                   + time.perf_counter() - t0)
 
 
-def compare_fn(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
-               timings: Optional[dict] = None):
-    """Comparison of ``cx`` against ``cy`` (``None``: against itself) on
-    their device -> (frag, n_frags, total_hits, n_seeds), all tensors.
-    ``timings`` (optional dict) gathers wall seconds per stage ("seeds",
-    "extend", "merge"), each ended by a device synchronisation."""
-    stage = StageTimer(timings, cx.device)
-    self_cmp = cy is None
-    cy = cx if self_cmp else cy
-    with stage("seeds"):
-        ys = {strand: cy if strand == 0 else revcomp_device(cy)
-              for strand in (0, 1) if "fr"[strand] in cfg.strands}
-        if self_cmp:
-            seeds = self_seeds_fn(cx, cfg)
-        else:
-            idx_x = build_index(cx, cfg.k)
-            seeds = {strand: pair_seeds_fn(idx_x, y, cfg)
-                     for strand, y in ys.items()}
-    frags, valids = [], []
-    with stage("extend"):
-        for strand, (spx, spy, sv, n_seeds, _) in seeds.items():
-            frag, fv = extend_strand(spx, spy, sv, n_seeds, cx, ys[strand],
-                                     cfg, strand)
-            frags.append(frag)
-            valids.append(fv)
-    with stage("merge"):
-        out, _, n_frags = merge_strands(frags, valids, cy.shape[0], cfg)
-    return (out, n_frags, torch.stack([s[4] for s in seeds.values()]),
-            torch.stack([s[3] for s in seeds.values()]))
-
-
 def compare_staged(cx: torch.Tensor, cy: Optional[torch.Tensor], cfg: Config,
                    timings: Optional[dict] = None, store=None):
-    """Stage-by-stage equivalent of compare_fn (the reference's
-    ``compare_staged``): the same stage functions and the same output, one
-    stage at a time, each ended by a device synchronisation. ``timings``
-    (optional dict) gathers wall seconds under the reference's stage
-    names: self "seeds" (both strands from one canonical index), "extend"
-    (per strand, strand r's revcomp included) and "merge"; pairwise
-    "revcomp", "index_x", "index_y", "join", "filter", "extend" (per
-    strand) and "merge". ``store`` (optional utils.checkpoint.StageStore)
+    """Comparison of ``cx`` against ``cy`` (``None``: against itself) on
+    their device, stage by stage (the reference's ``compare_staged``) ->
+    (frag, n_frags, total_hits, n_seeds), all tensors. ``timings``
+    (optional dict) gathers wall seconds, each stage then ended by a
+    device synchronisation, under the reference's stage names: self
+    "seeds" (both strands from one canonical index), "extend" (per
+    strand, strand r's revcomp included) and "merge"; pairwise "revcomp",
+    "index_x", "index_y", "join", "filter", "extend" (per strand) and
+    "merge". ``store`` (optional utils.checkpoint.StageStore)
     dumps each strand's seeds ("seeds{strand}") and extension
     ("extend{strand}") and reloads them on a rerun with the same
     fingerprint, so a stage that is reloaded is not timed."""
@@ -273,16 +233,13 @@ def compare(codesX: np.ndarray, codesY: Optional[np.ndarray], cfg: Config,
     a rerun with identical inputs resumes from the last completed stage.
     The reference also takes ``staged`` because its fused program
     compiles slowly on a TPU; torch compiles nothing, so the port has no
-    such option. compare_fn, the counterpart of that fused program, gives
-    the same output."""
+    such option and no fused program."""
     dev = check_device(device)
     self_cmp = codesY is None
     codes_x = np.asarray(codesX, np.uint8)
     codes_y = codes_x if self_cmp else np.asarray(codesY, np.uint8)
     if codes_x.shape[0] < cfg.k or codes_y.shape[0] < cfg.k:
-        frag = {f: np.zeros(0, np.int32) for f in orc.FRAG_FIELDS}
-        frag["group"] = np.zeros(0, np.int32)
-        return frag
+        return empty()
     with trace.span("compare", device=dev):
         cx = torch.from_numpy(codes_x.copy()).to(dev)
         cy = None if self_cmp else torch.from_numpy(codes_y.copy()).to(dev)

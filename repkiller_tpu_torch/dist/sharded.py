@@ -41,10 +41,10 @@ from ..index.build import build_index
 from ..index.canonical import build_canonical_index
 from ..index.shards import (build_canonical_dist, build_sharded_index,
                             build_sharded_index_dist, shard_capacity)
-from ..oracle import pipeline as orc
 from ..seeds.filter import filter_hits
 from ..seeds.join import join_hits
 from ..seeds.self_join import join_self_canonical
+from ..table import empty
 from ..utils import trace
 from .mesh import DATA_AXIS, SHARD_AXIS, Mesh, make_mesh
 
@@ -268,12 +268,6 @@ def _stage_c(mesh: Mesh, outs: list, y_len: int, cfg: Config):
     return out, n_frags
 
 
-def _empty() -> Dict[str, np.ndarray]:
-    frag = {f: np.zeros(0, np.int32) for f in orc.FRAG_FIELDS}
-    frag["group"] = np.zeros(0, np.int32)
-    return frag
-
-
 def compare_sharded(codesX: np.ndarray, codesY: Optional[np.ndarray],
                     cfg: Config, mesh: Optional[Mesh] = None, *,
                     device="cuda") -> Dict[str, np.ndarray]:
@@ -302,7 +296,7 @@ def compare_sharded(codesX: np.ndarray, codesY: Optional[np.ndarray],
     cx_np = np.asarray(codesX, np.uint8)
     cy_np = cx_np if self_cmp else np.asarray(codesY, np.uint8)
     if cx_np.shape[0] < cfg.k or cy_np.shape[0] < cfg.k:
-        return _empty()
+        return empty()
 
     # the window rounds UP to the thinning and gating bucket quantum
     n_pos = cx_np.shape[0] - cfg.k + 1

@@ -36,11 +36,8 @@ from ..device import (StageTimer, check_device, extend_strand,
                       merge_strands, pair_join, revcomp_device, thin_hits)
 from ..families import cluster_families
 from ..index.build import build_index
-from ..oracle import pipeline as orc
+from ..table import FRAG_FIELDS, empty
 from ..utils import trace
-
-_SAVE_FIELDS = ("xStart", "yStart", "xEnd", "yEnd", "strand", "length",
-                "score", "idents")
 
 
 def _window_seeds(cx_pad: torch.Tensor, cy_len: int, idxY, idxX_occ, w0: int,
@@ -91,9 +88,7 @@ def compare_streamed(codesX: np.ndarray, codesY: Optional[np.ndarray],
     cx = np.asarray(codesX, np.uint8)
     cy = cx if self_cmp else np.asarray(codesY, np.uint8)
     if cx.shape[0] < cfg.k or cy.shape[0] < cfg.k:
-        frag = {f: np.zeros(0, np.int32) for f in orc.FRAG_FIELDS}
-        frag["group"] = np.zeros(0, np.int32)
-        return frag
+        return empty()
 
     quantum = int(np.lcm(cfg.min_hit_dist, max(cfg.gate_stride, 1)))
     win = int(window or cfg.window)
@@ -145,7 +140,7 @@ def compare_streamed(codesX: np.ndarray, codesY: Optional[np.ndarray],
                     with stage("io"), np.load(
                             os.path.join(out_dir, done[key])) as z:
                         frags.append({f: torch.from_numpy(z[f]).to(dev)
-                                      for f in _SAVE_FIELDS})
+                                      for f in FRAG_FIELDS})
                         valids.append(torch.from_numpy(z["valid"]).to(dev))
                     continue
                 with stage("seeds"):

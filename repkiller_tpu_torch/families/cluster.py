@@ -12,10 +12,11 @@ It matches the oracle bit-identically: the oracle's union-by-smaller-index
 makes every union-find root the minimum member index, which is exactly the
 fixpoint of min-label propagation.
 
-Edge rule (same as oracle): intervals sorted by (space, start, end,
-frag_idx); i links to every later j in the same space with
-start_j <= end_i + proximity, provided the two fragments' lengths are
-ratio-compatible: min(la,lb)*100 >= round(len_ratio*100)*max(la,lb).
+Edge rule (same as oracle): the fragments' intervals (table.intervals_of)
+sorted by (space, start, end, frag_idx); i links to every later j in the
+same space with start_j <= end_i + proximity, provided the two
+fragments' lengths are ratio-compatible:
+min(la,lb)*100 >= round(len_ratio*100)*max(la,lb).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..oracle import pipeline as orc
+from ..table import intervals_of
 from ..utils import trace
 from .device import cluster_families_device
 
@@ -60,7 +61,7 @@ def _edge_ranges(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool):
     """Sorted interval table + per-interval neighbor ranges, on the host.
     Returns (fidx, counts, offs, lo, lens, pct, total, csum) in the
     (space, start, end, fidx) lex order."""
-    space, start, end, fidx = orc._intervals_of(frag, self_cmp)
+    space, start, end, fidx = intervals_of(frag, self_cmp)
     order = np.lexsort((fidx, end, start, space))
     space, start, end, fidx = (space[order], start[order], end[order],
                                fidx[order])

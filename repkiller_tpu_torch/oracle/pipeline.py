@@ -1,5 +1,8 @@
 """Pure-numpy oracle for the full repeat-detection pipeline: the port's copy
-of repkiller_tpu/oracle/pipeline.py, unchanged below this docstring.
+of repkiller_tpu/oracle/pipeline.py, unchanged below this docstring but for
+the fragment table's format and rules (FRAG_FIELDS, canonical_sort,
+_intervals_of, family_stats, repeat_intervals, _merge_sorted), which it
+takes from table.py under their old names.
 
 This oracle is the executable spec (SURVEY.md §4.1). Every device stage
 must match it bit-identically; it runs behind ``backend="oracle"``.
@@ -22,16 +25,11 @@ import numpy as np
 
 from ..config import Config
 from ..io import codec
+from ..table import (FRAG_FIELDS, canonical_sort, family_stats,  # noqa: F401
+                     intervals_of as _intervals_of, repeat_intervals,
+                     union_intervals as _merge_sorted)
 
 NEG_INF = np.int32(-(1 << 30))
-
-# Fragment table column order (shared by oracle / device / writers).
-FRAG_FIELDS = (
-    "xStart", "yStart", "xEnd", "yEnd",  # inclusive, comparison-space coords
-    "strand",                            # 0 = forward, 1 = reverse
-    "length", "score", "idents",
-)
-
 
 # --------------------------------------------------------------------------
 # k-mer extraction + index (SURVEY.md §2.2 "k-mer index build")
@@ -337,37 +335,9 @@ def accept_fragments(frag: Dict[str, np.ndarray], cfg: Config) -> Dict[str, np.n
     return {k: v[m] for k, v in frag.items()}
 
 
-def canonical_sort(frag: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Total-order canonical fragment ordering used for all final outputs:
-    (strand, xStart, yStart, xEnd, yEnd)."""
-    order = np.lexsort((frag["yEnd"], frag["xEnd"], frag["yStart"], frag["xStart"], frag["strand"]))
-    return {k: v[order] for k, v in frag.items()}
-
-
 # --------------------------------------------------------------------------
 # repeat families (repkiller proper — SURVEY.md §2.1 "Grouping heuristics")
 # --------------------------------------------------------------------------
-
-def _intervals_of(frag: Dict[str, np.ndarray], self_cmp: bool):
-    """Each fragment contributes two genomic intervals (its two repeat copies).
-
-    Returns (space, start, end, frag_idx): space 0 = X coords, 1 = Y coords
-    (for self-comparison both copies live in the same space 0). Reverse-strand
-    y intervals are normalised to (min,max) in comparison space — callers
-    converting to original coordinates do so in the writer.
-    """
-    n = frag["xStart"].shape[0]
-    xs, xe = frag["xStart"], frag["xEnd"]
-    ys = np.minimum(frag["yStart"], frag["yEnd"])
-    ye = np.maximum(frag["yStart"], frag["yEnd"])
-    idx = np.arange(n, dtype=np.int64)
-    space_y = np.zeros(n, np.int32) if self_cmp else np.ones(n, np.int32)
-    space = np.concatenate([np.zeros(n, np.int32), space_y])
-    start = np.concatenate([xs, ys]).astype(np.int64)
-    end = np.concatenate([xe, ye]).astype(np.int64)
-    fidx = np.concatenate([idx, idx])
-    return space, start, end, fidx
-
 
 class _UF:
     def __init__(self, n):
@@ -427,67 +397,6 @@ def cluster_families(frag: Dict[str, np.ndarray], cfg: Config, self_cmp: bool) -
         active.append((e, fi))
     roots = np.array([uf.find(i) for i in range(n)], dtype=np.int32)
     return roots
-
-
-def family_stats(frag: Dict[str, np.ndarray], group: np.ndarray) -> Dict[str, np.ndarray]:
-    """Per-family summary: id, n_fragments, span (bp covered on X), best score."""
-    if group.shape[0] == 0:
-        return {"family": np.zeros(0, np.int32), "n_frags": np.zeros(0, np.int32),
-                "max_score": np.zeros(0, np.int32), "total_len": np.zeros(0, np.int64)}
-    fams, inv = np.unique(group, return_inverse=True)
-    nf = fams.shape[0]
-    n_frags = np.bincount(inv, minlength=nf).astype(np.int32)
-    max_score = np.zeros(nf, np.int32)
-    np.maximum.at(max_score, inv, frag["score"])
-    total_len = np.zeros(nf, np.int64)
-    np.add.at(total_len, inv, frag["length"].astype(np.int64))
-    return {"family": fams.astype(np.int32), "n_frags": n_frags,
-            "max_score": max_score, "total_len": total_len}
-
-
-def repeat_intervals(frag: Dict[str, np.ndarray], group: np.ndarray, cfg: Config,
-                     self_cmp: bool) -> Dict[int, np.ndarray]:
-    """Masked repeat intervals: union (pure-overlap merge) of the intervals of
-    all fragments whose family has >= cfg.min_family repeat COPIES.
-
-    Copies, not fragments: in a self-comparison each fragment certifies
-    TWO copies (its x and y intervals both live in the genome), so a
-    single-fragment family is already a 2-copy repeat and passes the
-    default min_family=2. Cross-comparison fragments contribute one copy
-    per genome, so there the count is the fragment count.
-
-    Returns {space: int -> int64[n,2] (start, end inclusive)} per coordinate
-    space (0 = X, 1 = Y for cross-comparisons).
-    """
-    out: Dict[int, np.ndarray] = {}
-    n = group.shape[0]
-    if n == 0:
-        return out
-    fams, inv = np.unique(group, return_inverse=True)
-    sizes = np.bincount(inv, minlength=fams.shape[0])
-    copies = (2 if self_cmp else 1) * sizes
-    is_rep = copies[inv] >= cfg.min_family
-    sel = {k: v[is_rep] for k, v in frag.items()}
-    space, start, end, _ = _intervals_of(sel, self_cmp)
-    for sp in np.unique(space):
-        m = space == sp
-        s, e = start[m], end[m]
-        o = np.lexsort((e, s))
-        out[int(sp)] = _merge_sorted(s[o], e[o])
-    return out
-
-
-def _merge_sorted(s: np.ndarray, e: np.ndarray) -> np.ndarray:
-    """Union of inclusive intervals (s, e), e >= s, sorted by (s, e):
-    int64[n, 2]. An interval opens a new run where it starts more than one
-    base past the running maximum of the ends before it, so touching
-    intervals (s == end + 1) merge; a run ends at that maximum."""
-    run_end = np.maximum.accumulate(e)
-    first = np.flatnonzero(np.concatenate([[True], s[1:] > run_end[:-1] + 1]))
-    merged = np.empty((first.shape[0], 2), np.int64)
-    merged[:, 0] = s[first]
-    merged[:, 1] = run_end[np.append(first[1:], s.shape[0]) - 1]
-    return merged
 
 
 # --------------------------------------------------------------------------

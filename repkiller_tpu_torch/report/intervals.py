@@ -4,8 +4,8 @@ copy of repkiller_tpu/report/intervals.py.
 Repeat intervals are emitted BED-style (3 columns: name, 0-based start,
 half-open end) so they drop straight into standard masking tools; the
 family summary is a small CSV (family id, fragment count, best score,
-total bp). Both derive from oracle.pipeline.repeat_intervals /
-family_stats so every backend shares one definition.
+total bp). Both derive from table.repeat_intervals / family_stats, the
+fragment table's one definition, which every backend shares.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, TextIO, Union
 import numpy as np
 
 from ..config import Config
-from ..oracle import pipeline as orc
+from ..table import family_stats, repeat_intervals, union_intervals
 from ..utils import trace
 from .csv_writer import count_bytes
 
@@ -75,7 +75,7 @@ def write_intervals_bed(
     ``intervals``, the ``split`` ones (those that straddle a record
     boundary and so give more than one row) and, for a path, the
     ``bytes`` written."""
-    iv = orc.repeat_intervals(frag, frag["group"], cfg, self_cmp)
+    iv = repeat_intervals(frag, frag["group"], cfg, self_cmp)
     trace.count("intervals", sum(len(v) for v in iv.values()))
     text, split = [], 0
     for space in sorted(iv):
@@ -110,7 +110,7 @@ def write_family_summary(
     """Per-family stats CSV; returns the stats dict. Each call is a
     "report.summary" trace span that counts the ``rows`` (families) and,
     for a path, the ``bytes`` written."""
-    stats = orc.family_stats(frag, frag["group"])
+    stats = family_stats(frag, frag["group"])
     trace.count("rows", int(stats["family"].shape[0]))
     close = False
     if isinstance(dst, str):
@@ -134,16 +134,23 @@ def write_family_summary(
 def mask_codes(
     codes: np.ndarray, intervals: Optional[np.ndarray]
 ) -> np.ndarray:
-    """Hard-mask repeat intervals (inclusive int64[n,2], non-negative,
-    sorted and disjoint as ``repeat_intervals`` gives them; ValueError
-    where they overlap or are out of order) to N in a uint8 code array —
-    the repeat-masking capability of the reference tool. Ends past the
-    array are clipped."""
+    """Hard-mask repeat intervals (inclusive int64[n,2], non-negative) to N
+    in a uint8 code array, as the reference masks each interval in turn —
+    the repeat-masking capability of the reference tool. Intervals sorted
+    and disjoint, as ``repeat_intervals`` gives them, are masked in one
+    pass; any others are first sorted and unioned, an interval with e < s
+    masking nothing. Ends past the array are clipped."""
     out = np.asarray(codes, np.uint8).copy()
     if intervals is None:
         return out
     n = out.shape[0]
     iv = np.asarray(intervals, np.int64).reshape(-1, 2) + [0, 1]
+    if (np.diff(iv.ravel()) < 0).any():
+        s, e = iv[:, 0], iv[:, 1] - 1
+        keep = e >= s
+        s, e = s[keep], e[keep]
+        o = np.lexsort((e, s))
+        iv = (union_intervals(s[o], e[o]) if o.size else iv[:0]) + [0, 1]
     bounds = np.concatenate([[0], np.minimum(iv.ravel(), n), [n]])
     inside = np.zeros(bounds.shape[0] - 1, bool)
     inside[1::2] = True

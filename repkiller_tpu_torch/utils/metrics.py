@@ -4,7 +4,8 @@ fragments and families.
 
 `profile_stages` runs the single-device pipeline stage by stage, with a
 device synchronisation after each stage, so the wall times are
-attributable. The records carry the reference's stages and count fields;
+attributable; it clusters with the program's families layer, on
+``device`` where that layer would take it. The records carry the reference's stages and count fields;
 only ``wall_s`` differs between the two packages.
 """
 
@@ -21,8 +22,8 @@ from ..config import Config
 from ..device import check_device, pair_join, thin_hits
 from ..chain.merge import merge_accept
 from ..extend import extend_dispatch
+from ..families import cluster_families
 from ..index.build import build_index
-from ..oracle import pipeline as orc
 
 
 def profile_stages(codesX: np.ndarray, codesY: Optional[np.ndarray],
@@ -82,7 +83,7 @@ def profile_stages(codesX: np.ndarray, codesY: Optional[np.ndarray],
 
     t0 = time.perf_counter()
     host = {k: v[: int(n_frags)].cpu().numpy() for k, v in out.items()}
-    group = orc.cluster_families(host, cfg, self_cmp)
+    group = cluster_families(host, cfg, self_cmp, device=dev)
     rec("families_host", t0, families=int(np.unique(group).shape[0])
         if group.size else 0)
     return records

@@ -2,14 +2,11 @@
 group on the CPU, through the port's init_distributed. Imports nothing of
 JAX: expected results arrive in a file.
 
-  python _torch_mp_worker.py mesh <port> <rank> <n> <genome.npy> <want.npz>
+  python _torch_mp_worker.py <port> <rank> <n> <genome.npy> <want.npz>
       compare_sharded over the default mesh of the n ranks (a ProcessMesh);
       every rank must hold the full table, equal to want.npz.
-  python _torch_mp_worker.py gather <port> <rank> <n>
-      gather_fragments reassembles every rank's round-robin row slice of
-      one oracle table into the canonical table on every rank.
 
-Prints one line "<MODE>_OK <rank> <is_output_host> <sha256 of the table>".
+Prints one line "MESH_OK <rank> <is_output_host> <sha256 of the table>".
 """
 
 import hashlib
@@ -20,10 +17,8 @@ import torch
 
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.dist.mesh import ProcessMesh, init_distributed, make_mesh
-from repkiller_tpu_torch.dist.merge import gather_fragments, is_output_host
+from repkiller_tpu_torch.dist.merge import is_output_host
 from repkiller_tpu_torch.dist.sharded import compare_sharded
-from repkiller_tpu_torch.oracle import pipeline as orc
-from repkiller_tpu_torch.utils import synth
 
 CFG = Config(k=12, strands="fr", hit_capacity=1 << 12, max_extend=128)
 
@@ -36,27 +31,19 @@ def _digest(table) -> str:
 
 
 def main() -> None:
-    mode, port, rank, n = sys.argv[1], *map(int, sys.argv[2:5])
+    port, rank, n = map(int, sys.argv[1:4])
     torch.set_num_threads(1)
     init_distributed(f"127.0.0.1:{port}", n, rank, device="cpu")
-    if mode == "mesh":
-        codes = np.load(sys.argv[5])
-        mesh = make_mesh(device="cpu")
-        assert isinstance(mesh, ProcessMesh) and mesh.bodies == [divmod(rank, 2)]
-        got = compare_sharded(codes, None, CFG, mesh)
-        with np.load(sys.argv[6]) as z:
-            want = {k: z[k] for k in z.files}
-    else:
-        g = synth.plant(1500, [(90, 3, 0.03, 1)], seed=7)
-        full = orc.compare(g.codes, None, CFG)
-        full.pop("group", None)
-        want = orc.canonical_sort({k: v.copy() for k, v in full.items()})
-        got = gather_fragments({k: v[rank::n] for k, v in full.items()})
+    codes = np.load(sys.argv[4])
+    mesh = make_mesh(device="cpu")
+    assert isinstance(mesh, ProcessMesh) and mesh.bodies == [divmod(rank, 2)]
+    got = compare_sharded(codes, None, CFG, mesh)
+    with np.load(sys.argv[5]) as z:
+        want = {k: z[k] for k in z.files}
     assert got.keys() == want.keys(), (sorted(got), sorted(want))
     for k in want:
         assert np.array_equal(got[k], want[k]), (k, got[k][:8], want[k][:8])
-    print(f"{mode.upper()}_OK {rank} {int(is_output_host())} {_digest(got)}",
-          flush=True)
+    print(f"MESH_OK {rank} {int(is_output_host())} {_digest(got)}", flush=True)
     torch.distributed.destroy_process_group()
 
 

@@ -1,6 +1,6 @@
 """Tests of the torch port that need an NVIDIA GPU: kernels K1 and K2
 against their plain versions on the card, the pipeline on the card
-(self and pairwise, banded and ungapped; fused, staged with resume,
+(self and pairwise, banded and ungapped; single-shot, staged with resume,
 streamed, sharded on a one-process mesh and on a one-rank NCCL process
 mesh, and per-stage timing) against the CPU or device.compare, and the
 device path of family clustering on the card against the host path.
@@ -23,6 +23,7 @@ from repkiller_tpu_torch.extend import _cuda, ungapped
 from repkiller_tpu_torch.extend.banded import direction_plain
 from repkiller_tpu_torch.families import cluster as tcluster
 from repkiller_tpu_torch.oracle import pipeline as torc
+from repkiller_tpu_torch.table import canonical_sort
 from repkiller_tpu_torch.utils import synth, trace
 from repkiller_tpu_torch.utils.metrics import profile_stages
 
@@ -402,8 +403,8 @@ def test_streamed_on_card_matches_cpu(gpu, tmp_path, mode, pair):
 @pytest.mark.parametrize("mode", ["ungapped", "banded"])
 @pytest.mark.parametrize("pair", [False, True], ids=["self", "pair"])
 def test_staged_on_card_matches_cpu(gpu, tmp_path, mode, pair):
-    """Staged with keep_intermediates on the card equals the CPU's fused
-    output; the resume runs no kernel and no heavy stage."""
+    """Staged with keep_intermediates on the card equals the CPU's
+    output without a store; the resume runs no kernel and no heavy stage."""
     g = synth.plant(20000, [(400, 3, 0.03, 1), (150, 4, 0.0, 1)], seed=6)
     y = g.codes[1000:15000].copy() if pair else None
     cfg = Config(k=12, strands="fr", extend_mode=mode, hit_capacity=1 << 15,
@@ -494,7 +495,7 @@ def random_frags(n, seed, L=20000):
         "score": rng.integers(0, 2000, n).astype(np.int32),
         "idents": (ln * 0.9).astype(np.int32),
     }
-    return torc.canonical_sort(frag)
+    return canonical_sort(frag)
 
 
 def pileup_frags():
@@ -513,7 +514,7 @@ def pileup_frags():
         "score": np.full(n, 100, np.int32),
         "idents": np.full(n, 90, np.int32),
     }
-    return torc.canonical_sort(frag)
+    return canonical_sort(frag)
 
 
 CLUSTER_CONFIGS = [Config(), Config(proximity=100, len_ratio=0.0),

@@ -1,10 +1,16 @@
 """The port's own copies of the host-only modules against the JAX package's:
-``config``, ``oracle.pipeline``, ``io.fasta``, ``report`` writers,
-``families.cluster``, ``utils.{synth,capacity}`` and the CLI's parser.
-Integer outputs and written files: exact equality, byte for byte."""
+``config``, ``oracle.pipeline``, ``table``, ``io.fasta``, ``report``
+writers, ``families.cluster``, ``utils.{synth,capacity}`` and the CLI's
+parser. Integer outputs and written files: exact equality, byte for byte.
+Also the port's layering: only ``api`` imports the oracle, for
+``backend="oracle"``; and the names the benchmark harness patches exist
+where it patches them."""
 
+import ast
 import dataclasses
+import importlib
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,7 +22,8 @@ from repkiller_tpu.io import fasta as jfasta
 from repkiller_tpu.oracle import pipeline as jorc
 from repkiller_tpu.report import csv_writer as jcsv, intervals as jiv
 from repkiller_tpu.utils import capacity as jcap, synth as jsynth
-from repkiller_tpu_torch import cli as tcli
+import repkiller_tpu_torch
+from repkiller_tpu_torch import cli as tcli, table
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.families import cluster as tcluster
 from repkiller_tpu_torch.io import fasta as tfasta
@@ -158,6 +165,84 @@ def test_intervals_bed_and_family_summary_match_reference(frags):
     tiv.write_family_summary(frag, got)
     jiv.write_family_summary(frag, want)
     assert got.getvalue() == want.getvalue() and got.getvalue()
+
+
+def test_table_matches_reference_oracle(frags):
+    """``table``'s canonical order, family statistics, repeat intervals and
+    interval union against the JAX package's oracle on the same table."""
+    frag, cfg, self_cmp, _, _ = _labelled(frags)
+    shuffled = {f: v[np.random.default_rng(3).permutation(v.shape[0])]
+                for f, v in frag.items()}
+    _assert_dict_equal(table.canonical_sort(shuffled),
+                       jorc.canonical_sort(shuffled))
+    _assert_dict_equal(table.family_stats(frag, frag["group"]),
+                       jorc.family_stats(frag, frag["group"]))
+    got = table.repeat_intervals(frag, frag["group"], cfg, self_cmp)
+    want = jorc.repeat_intervals(frag, frag["group"], _ref(cfg), self_cmp)
+    _assert_dict_equal(got, want)
+    # one family of every fragment: each space's union of all intervals
+    space, start, end, _ = table.intervals_of(frag, self_cmp)
+    o = np.lexsort((end, start))
+    s, e = start[o][space[o] == 0], end[o][space[o] == 0]
+    everything = jorc.repeat_intervals(
+        frag, np.zeros(frag["xStart"].shape[0], np.int32), _ref(cfg), self_cmp)
+    assert np.array_equal(table.union_intervals(s, e), everything[0])
+    assert everything[0].shape[0] < s.shape[0]
+
+
+PORT = Path(repkiller_tpu_torch.__file__).parent
+
+
+def _oracle_imports(tree: ast.AST) -> list:
+    """Line numbers of the imports of the oracle package in a module."""
+    lines = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] + [a.name for a in node.names]
+        else:
+            continue
+        if any("oracle" in m.split(".") for m in mods):
+            lines.append(node.lineno)
+    return lines
+
+
+def test_only_api_imports_the_oracle():
+    """Outside ``oracle/`` one module imports the oracle, ``api``, once,
+    and uses nothing of it but ``compare`` (``backend="oracle"``)."""
+    found = {}
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT)
+        if rel.parts[0] == "oracle":
+            continue
+        lines = _oracle_imports(ast.parse(path.read_text()))
+        if lines:
+            found[str(rel)] = lines
+    assert list(found) == ["api.py"] and len(found["api.py"]) == 1, found
+    tree = ast.parse((PORT / "api.py").read_text())
+    used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+            and isinstance(n.value, ast.Name) and n.value.id == "orc"}
+    assert used == {"compare"}
+
+
+@pytest.mark.parametrize("module, name", [
+    ("device", "cluster_families"), ("device", "filter_hits"),
+    ("device", "merge_strands"), ("dist.sharded", "cluster_families"),
+    ("dist.sharded", "filter_hits"), ("dist.sharded", "merge_strands"),
+    ("chain.diagonal", "extend_dispatch"),
+    ("chain.diagonal", "extend_banded_gated"),
+    ("api", "Result.write_csv"), ("api", "Result.write_intervals"),
+    ("api", "Result.write_family_summary"),
+    ("dist.mesh", "ProcessMesh.all_to_all"), ("utils.trace", "spans"),
+    ("utils.trace", "dropped")])
+def test_harness_patched_names_exist(module, name):
+    """The benchmark harness and its tests patch these module attributes;
+    each must stay where they patch it."""
+    obj = importlib.import_module("repkiller_tpu_torch." + module)
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    assert callable(obj)
 
 
 MULTI_FASTA = (b">chr1 first record\nACGTNNNNacgtRYKM\nACGTACGTAC\n\n"

@@ -1,5 +1,5 @@
 """The port's repeat-interval path against the JAX package's, exactly:
-``oracle.pipeline.repeat_intervals`` (the merge), ``report.intervals``'
+``table.repeat_intervals`` (the merge), ``report.intervals``'
 ``write_intervals_bed`` (text and the intervals it returns) and
 ``mask_codes``, and ``api.Result.masked_fasta``. Each case is a fragment
 table over a SeqSet of records joined by 32-N spacers, as ``read_fasta``
@@ -17,10 +17,9 @@ from repkiller_tpu.config import Config as JConfig
 from repkiller_tpu.io import fasta as jfasta
 from repkiller_tpu.oracle import pipeline as jorc
 from repkiller_tpu.report import intervals as jiv
-from repkiller_tpu_torch import api as tapi
+from repkiller_tpu_torch import api as tapi, table
 from repkiller_tpu_torch.config import Config
 from repkiller_tpu_torch.io import fasta as tfasta
-from repkiller_tpu_torch.oracle import pipeline as torc
 from repkiller_tpu_torch.report import intervals as tiv
 
 SPACER = 32
@@ -194,10 +193,14 @@ def test_mask_and_masked_fasta_match_reference(case):
 
 @pytest.mark.parametrize("intervals", [
     [[0, 0]], [[3, 5], [6, 9]], [[2, 4], [8, 100]], [[50, 60]],
-    np.zeros((0, 2), np.int64), None])
+    np.zeros((0, 2), np.int64), None,
+    [[5, 9], [7, 12]], [[10, 12], [2, 3]], [[2, 15], [4, 6]], [[5, 3]],
+    [[18, 40]], [[9, 4], [20, 25], [1, 2]], [[4, 8], [4, 8], [0, 1]]])
 def test_mask_codes_edges_match_reference(intervals):
     """A first base, touching intervals, ends past the array, an interval
-    wholly past it, none at all."""
+    wholly past it, none at all; and, as the reference masks each
+    interval in turn, overlapping, unsorted, nested, empty (e < s) and
+    repeated intervals."""
     codes = np.arange(30, dtype=np.uint8) % 4
     assert np.array_equal(tiv.mask_codes(codes, intervals),
                           jiv.mask_codes(codes, intervals))
@@ -214,8 +217,8 @@ def test_masked_fasta_of_no_records_matches_reference():
 
 
 def test_merge_matches_reference_loop_on_random_intervals():
-    """``_merge_sorted`` against the loop it replaced, on intervals that
-    nest, touch and repeat."""
+    """``table.union_intervals`` against the loop it replaced, on
+    intervals that nest, touch and repeat."""
     rng = np.random.default_rng(11)
     s = rng.integers(0, 5_000, 20_000)
     e = s + rng.integers(0, 40, 20_000)
@@ -229,7 +232,7 @@ def test_merge_matches_reference_loop_on_random_intervals():
             merged.append((cs, ce))
             cs, ce = a, b
     merged.append((cs, ce))
-    assert torc._merge_sorted(s, e).tolist() == [list(m) for m in merged]
+    assert table.union_intervals(s, e).tolist() == [list(m) for m in merged]
     want = jorc.repeat_intervals(_frag(np.stack([s, e, s, e], 1)),
                                  np.zeros(s.shape[0], np.int32), JConfig(),
                                  True)[0]

@@ -13,7 +13,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from repkiller_tpu import device as jdevice
 from repkiller_tpu.config import Config as JConfig
@@ -62,11 +61,6 @@ def test_staged_matches_jax_and_fused(tmp_path, self_cmp):
                           keep_intermediates=str(tmp_path / "ckpt"))
     _assert_frag_equal(got, jdevice.compare(cx, cy, _ref(CFG)))
     _assert_frag_equal(got, tdevice.compare(cx, cy, CFG, "cpu"))
-    out, n_frags, _, _ = tdevice.compare_fn(
-        torch.from_numpy(cx.copy()),
-        None if cy is None else torch.from_numpy(cy.copy()), CFG)
-    for f in orc.FRAG_FIELDS:                # the fused program's output
-        assert np.array_equal(got[f], out[f][:int(n_frags)].numpy()), f
     want_keys = ({"seeds", "extend", "merge"} if self_cmp else
                  {"revcomp", "index_x", "index_y", "join", "filter", "extend",
                   "merge"})
