@@ -99,8 +99,9 @@ Phases, each of which must pass (any failure exits non-zero):
  17. the native host I/O (io/native.py, built with g++ in phase 1): config
      #4's 48 Mbp genome as a two-record FASTA through read_fasta (native)
      and the numpy parse, equal SeqSets; config #3's banded fragments
-     through the native and the Python CSV writers, equal bytes; both
-     paths' times. Phase 4's CLI run writes its CSV with the native writer.
+     through the native writer (to a file and to a stream) and the Python
+     rows, equal bytes; both paths' times. Phase 4's CLI run writes its
+     CSV with the native writer.
 
 Before the card is pinned, ``nvidia-smi -L`` gives the machine's GPU
 count, printed on an informational line. The counts of configs #2, #4 and
@@ -127,6 +128,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1360,9 +1362,9 @@ def phase_native_io(codes4: np.ndarray, pair_frag: dict, smi: str) -> None:
                   y_len=PAIR_SIZE + 5000, total_hits=sum(PAIR_HITS))
         nat_csv, py_csv = os.path.join(tmp, "native.csv"), os.path.join(tmp, "py.csv")
 
-        def python_writer():
-            with open(py_csv, "w") as f:
-                csv_writer.write_frags_csv(pair_frag, f, **kw)
+        def python_writer():        # the rows without the native library
+            with mock.patch.object(native, "available", lambda: False):
+                csv_writer.write_frags_csv(pair_frag, py_csv, **kw)
 
         nat_s, nat_all, _ = median_time(
             lambda: csv_writer.write_frags_csv(pair_frag, nat_csv, **kw))
@@ -1370,6 +1372,10 @@ def phase_native_io(codes4: np.ndarray, pair_frag: dict, smi: str) -> None:
         data = Path(nat_csv).read_bytes()
         check(data == Path(py_csv).read_bytes(),
               "config #3: the native and Python CSV writers differ")
+        buf = io.StringIO()
+        csv_writer.write_frags_csv(pair_frag, buf, **kw)
+        check(buf.getvalue().encode() == data,
+              "config #3: the native writer's stream and file differ")
         check(data.count(b"\nFrag,") == n, "config #3: CSV rows")
         print(f"# write_frags_csv of config #3 banded ({n} fragments, "
               f"{len(data)} bytes): native {nat_s:.6f} s "

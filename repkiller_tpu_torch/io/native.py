@@ -16,7 +16,7 @@ Public surface:
   parse_fasta(data: bytes, spacer) -> (codes, offsets, lengths)   # no names
   pack_2bit(codes) -> (packed, nmask, length)
   revcomp(codes) -> codes
-  write_frags_csv(path, header, frag, self_cmp) -> n_rows
+  write_frags_csv(dst, header, frag, self_cmp, rec_x, rec_y) -> threads
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, TextIO, Tuple, Union
 
 import numpy as np
 
@@ -41,6 +41,7 @@ _p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _p_u32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_SINK = ctypes.CFUNCTYPE(None, ctypes.c_void_p, _i64)
 _CSV_FIELDS = ("xStart", "yStart", "xEnd", "yEnd", "strand", "group",
                "length", "score", "idents")
 
@@ -89,8 +90,10 @@ def _lib(source: Path) -> Optional[ctypes.CDLL]:
     lib.rk_revcomp.restype = None
     lib.rk_revcomp.argtypes = [_p_u8, _i64, _p_u8]
     lib.rk_write_frags_csv.restype = _i64
-    lib.rk_write_frags_csv.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
-                                       _i64] + [_p_i32] * 9 + [ctypes.c_int32]
+    lib.rk_write_frags_csv.argtypes = (
+        [ctypes.c_char_p, _SINK, ctypes.c_char_p, _i64] + [_p_i32] * 9
+        + [ctypes.c_void_p] * 2
+        + [ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)])
     return lib
 
 
@@ -144,23 +147,39 @@ def revcomp(codes: np.ndarray) -> np.ndarray:
     return out
 
 
-def write_frags_csv(path: str, header: str, frag: Dict[str, np.ndarray],
-                    self_cmp: bool) -> int:
-    """``header`` then one ``Frag,...`` row per fragment into the file at
-    ``path``, the same bytes as report/csv_writer's Python rows of a
-    single-record run -> rows written."""
+def write_frags_csv(dst: Union[str, TextIO], header: str,
+                    frag: Dict[str, np.ndarray], self_cmp: bool,
+                    rec_x: Optional[np.ndarray] = None,
+                    rec_y: Optional[np.ndarray] = None) -> int:
+    """``header`` then one ``Frag,...`` row per fragment, to the file at
+    the path ``dst`` or to the text stream ``dst``: the same bytes as
+    report/csv_writer's Python rows, with ``rec_x``/``rec_y`` (or the
+    constants 0 and ``0 if self_cmp else 1``) in the seqX/seqY columns.
+    Rows are formatted on up to min(8, cpu_count) threads, one for each
+    block of rows begun -> the threads that formatted rows."""
     lib = _load()
     n = int(frag["xStart"].shape[0])
     cols = {f: np.ascontiguousarray(frag[f], np.int32)
             for f in _CSV_FIELDS if f != "group"}
     cols["group"] = np.ascontiguousarray(
         frag.get("group", np.zeros(n, np.int32)), np.int32)
-    bad = [f for f, v in cols.items() if v.shape != (n,)]
+    recs = {k: np.ascontiguousarray(v, np.int32)
+            for k, v in (("rec_x", rec_x), ("rec_y", rec_y)) if v is not None}
+    bad = [f for f, v in {**cols, **recs}.items() if v.shape != (n,)]
     if bad:
         raise ValueError(f"fragment columns {bad} do not hold {n} rows")
-    got = lib.rk_write_frags_csv(path.encode(), header.encode(), n,
-                                 *(cols[f] for f in _CSV_FIELDS),
-                                 1 if self_cmp else 0)
-    if got != n:
-        raise IOError(f"native CSV writer failed for {path!r}")
-    return got
+    pieces = []
+    sink = _SINK(lambda data, size: pieces.append(ctypes.string_at(data, size)))
+    path = dst.encode() if isinstance(dst, str) else None
+    threads = ctypes.c_int32(0)
+    got = lib.rk_write_frags_csv(
+        path, sink, header.encode(), n, *(cols[f] for f in _CSV_FIELDS),
+        *(recs[k].ctypes.data if k in recs else None
+          for k in ("rec_x", "rec_y")),
+        1 if self_cmp else 0, min(8, os.cpu_count() or 1),
+        ctypes.byref(threads))
+    if got < 0 or (path is None and sum(map(len, pieces)) != got):
+        raise IOError(f"native CSV writer failed for {dst!r}")
+    for piece in pieces:
+        dst.write(piece.decode())
+    return threads.value

@@ -1,7 +1,7 @@
 """Fragment table CSV writer/reader (SURVEY.md §1 L5, §2.1 "Writers"); the
-port's copy of repkiller_tpu/report/csv_writer.py. A path destination of a
-single-record run is written by the native C++ writer (io/native.py) when
-its library is available; the Python writer below gives the same bytes.
+port's copy of repkiller_tpu/report/csv_writer.py. Every table is written
+by the native C++ writer (io/native.py) when its library is available;
+the Python rows below give the same bytes without it.
 
 The GECKO/repkiller ecosystem exchanges fragments as a CSV with a header
 of sequence metadata followed by one `Frag,...` row per fragment
@@ -111,84 +111,84 @@ def write_frags_csv(
     the spacer is shorter than an x-drop bridge — the reader restores
     concat space exactly either way).
 
-    Path destinations go through the native C++ writer when available
-    (the same bytes); multi-record runs use the Python path (per-row
-    record ids). Each call is a "report.csv" trace span that counts the
-    ``rows``, whether the ``native`` writer ran (1) or not (0) and, for a
-    path, the ``bytes`` written."""
+    Every table, to a path or a text stream, goes through the native C++
+    writer when its library is available (the per-row record ids and
+    record-local coordinates computed here in numpy); the Python rows
+    give the same bytes without it. Each call is a "report.csv" trace
+    span that counts the ``rows``, whether the ``native`` writer ran (1)
+    or not (0), the ``threads`` that formatted rows and, for a path, the
+    ``bytes`` written."""
     if coords not in ("concat", "record"):
         raise ValueError(f"coords must be 'concat' or 'record', got {coords!r}")
     n = int(frag["xStart"].shape[0])
     trace.count("rows", n)
     self_cmp = y_name is None
-    multirec = (x_seqs is not None and x_seqs.names
-                and len(x_seqs.names) > 1) or \
-               (y_seqs is not None and y_seqs.names
-                and len(y_seqs.names) > 1)
     header = _render_header(n, x_name, y_name, x_len, y_len, total_hits,
                             x_seqs=x_seqs, y_seqs=y_seqs, coords=coords)
-    if coords == "record" and not multirec:
-        coords = "concat"          # single record: identical coordinates
-    native_path = isinstance(dst, str) and not multirec and native.available()
-    trace.count("native", int(native_path))
-    if native_path:
-        native.write_frags_csv(dst, header, frag, self_cmp)
-        count_bytes(dst)
-        return
-    close = False
-    if isinstance(dst, str):
-        f = open(dst, "w")
-        close = True
+    ys_set = x_seqs if self_cmp else y_seqs
+    rx = _rec_ids(x_seqs, frag["xStart"], frag["xEnd"])
+    ry = _rec_ids(ys_set, frag["yStart"], frag["yEnd"])
+    cols = dict(frag)
+    if coords == "record":         # a single-record side keeps its coordinates
+        for rec, seqs, ends in ((rx, x_seqs, ("xStart", "xEnd")),
+                                (ry, ys_set, ("yStart", "yEnd"))):
+            if rec is not None:
+                off = np.asarray(seqs.offsets)[rec]
+                for f in ends:
+                    cols[f] = np.asarray(frag[f]) - off
+    use_native = native.available()
+    trace.count("native", int(use_native))
+    threads = 1
+    if use_native:
+        threads = native.write_frags_csv(dst, header, cols, self_cmp, rx, ry)
+    elif isinstance(dst, str):
+        with open(dst, "w") as f:
+            _write_rows(f, header, cols, rx, ry, self_cmp)
     else:
-        f = dst
-    try:
-        f.write(header)
-        group = frag.get("group")
-        score = frag["score"]
-        length = frag["length"]
-        idents = frag["idents"]
-        strand = frag["strand"]
-        xs, ys = frag["xStart"], frag["yStart"]
-        xe, ye = frag["xEnd"], frag["yEnd"]
-
-        def _rec_ids(seqs, a, b):
-            if seqs is None or not seqs.names or len(seqs.names) < 2:
-                return None
-            left = np.minimum(np.asarray(a), np.asarray(b))
-            offs = np.asarray(seqs.offsets)
-            return np.maximum(
-                np.searchsorted(offs, left, side="right") - 1, 0)
-
-        rx = _rec_ids(x_seqs, xs, xe)
-        ys_set = x_seqs if self_cmp else y_seqs
-        ry = _rec_ids(ys_set, ys, ye)
-        if coords == "record":
-            xoff = (np.asarray(x_seqs.offsets)[rx]
-                    if rx is not None else np.zeros(n, np.int64))
-            yoff = (np.asarray(ys_set.offsets)[ry]
-                    if ry is not None else np.zeros(n, np.int64))
-            xs, xe = np.asarray(xs) - xoff, np.asarray(xe) - xoff
-            ys, ye = np.asarray(ys) - yoff, np.asarray(ye) - yoff
-        for i in range(n):
-            ln = int(length[i])
-            idn = int(idents[i])
-            sim = 100.0 * idn / ln if ln else 0.0
-            f.write(
-                "Frag,%d,%d,%d,%d,%s,%d,%d,%d,%d,%.2f,%.2f,%d,%d\n"
-                % (
-                    int(xs[i]) + 1, int(ys[i]) + 1, int(xe[i]) + 1, int(ye[i]) + 1,
-                    "f" if int(strand[i]) == 0 else "r",
-                    int(group[i]) if group is not None else 0,
-                    ln, int(score[i]), idn, sim, sim,
-                    int(rx[i]) if rx is not None else 0,
-                    int(ry[i]) if ry is not None
-                    else (0 if self_cmp else 1),
-                )
-            )
-    finally:
-        if close:
-            f.close()
+        _write_rows(dst, header, cols, rx, ry, self_cmp)
+    trace.count("threads", threads)
     count_bytes(dst)
+
+
+def _rec_ids(seqs, a, b) -> Optional[np.ndarray]:
+    """Each row's record id (the record of its leftmost base) on a multi-
+    record side; None on a single-record one."""
+    if seqs is None or not seqs.names or len(seqs.names) < 2:
+        return None
+    left = np.minimum(np.asarray(a), np.asarray(b))
+    offs = np.asarray(seqs.offsets)
+    return np.maximum(np.searchsorted(offs, left, side="right") - 1, 0)
+
+
+def _write_rows(f: TextIO, header: str, frag: Dict[str, np.ndarray],
+                rx: Optional[np.ndarray], ry: Optional[np.ndarray],
+                self_cmp: bool) -> None:
+    """The header and the Python rows, where the native library is
+    unavailable: the bytes the native writer gives."""
+    f.write(header)
+    group = frag.get("group")
+    score = frag["score"]
+    length = frag["length"]
+    idents = frag["idents"]
+    strand = frag["strand"]
+    xs, ys = frag["xStart"], frag["yStart"]
+    xe, ye = frag["xEnd"], frag["yEnd"]
+    for i in range(int(xs.shape[0])):
+        ln = int(length[i])
+        idn = int(idents[i])
+        sim = 100.0 * idn / ln if ln else 0.0
+        f.write(
+            "Frag,%d,%d,%d,%d,%s,%d,%d,%d,%d,%.2f,%.2f,%d,%d\n"
+            % (
+                int(xs[i]) + 1, int(ys[i]) + 1, int(xe[i]) + 1, int(ye[i]) + 1,
+                "f" if int(strand[i]) == 0 else "r",
+                int(group[i]) if group is not None else 0,
+                ln, int(score[i]), idn, sim, sim,
+                int(rx[i]) if rx is not None else 0,
+                int(ry[i]) if ry is not None
+                else (0 if self_cmp else 1),
+            )
+        )
 
 
 def read_frags_csv(src: Union[str, TextIO, bytes]) -> Dict[str, np.ndarray]:

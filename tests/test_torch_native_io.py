@@ -5,6 +5,7 @@ and the fragment CSV writer, byte for byte; and how the library is built
 (a broken source raises, no g++ leaves the numpy paths)."""
 
 import io
+import os
 import shutil
 
 import numpy as np
@@ -128,29 +129,161 @@ def _random_table(seed, n, group=True):
     return frag
 
 
+def _tie_table():
+    """Every (idents, length) with length up to 160, exact ties of the
+    similarity's last digit among them ((1, 32) -> 3.125), the ties the
+    double cannot hold exactly ((1, 20000) -> 0.005), length 0, and
+    identities beyond the length."""
+    pairs = [(i, ln) for ln in range(1, 161) for i in range(ln + 1)]
+    pairs += [(1, 32), (3, 800), (1, 800), (1, 20000), (7, 20000), (0, 0),
+              (9, 0), (1, 2**31 - 1), (2**31 - 1, 2**31 - 1),
+              (12345, 2**31 - 1), (2**31 - 1, 1), (10**6, 3), (104857, 1000)]
+    idn, ln = (np.array(v, np.int32) for v in zip(*pairs))
+    n = idn.shape[0]
+    frag = _random_table(7, n)
+    frag["idents"], frag["length"] = idn, ln
+    return frag
+
+
+def _edge_table(seed, n=4000):
+    """Coordinates near 2^31 - 1, the int32 ends in the other columns,
+    negative identities and lengths, and length 0."""
+    rng = np.random.default_rng(seed)
+    top = 2**31 - 2
+    frag = {f: rng.integers(top - 5000, top, n, endpoint=True).astype(np.int32)
+            for f in ("xStart", "yStart", "xEnd", "yEnd")}
+    frag["xEnd"][:4] = top
+    frag["strand"] = rng.integers(0, 2, n).astype(np.int32)
+    for f in ("length", "score", "idents", "group"):
+        frag[f] = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    frag["length"][: n // 2] = rng.integers(-3000, 3000, n // 2)
+    frag["idents"][: n // 2] = rng.integers(-3000, 3000, n // 2)
+    frag["length"][::7] = 0
+    frag["score"][:2] = (-2**31, 2**31 - 1)
+    return frag
+
+
+def _records(seed, lengths, spacer=31):
+    """A multi-record SeqSet (records of ``lengths`` with ``spacer`` N
+    codes between them)."""
+    offs = np.concatenate([[0], np.cumsum(np.add(lengths, spacer))[:-1]])
+    codes = np.zeros(int(offs[-1] + lengths[-1]), np.uint8)
+    return tfasta.SeqSet(codes=codes, names=[f"r{seed}_{i}" for i in
+                                             range(len(lengths))],
+                         offsets=offs.astype(np.int64),
+                         lengths=np.asarray(lengths, np.int64))
+
+
+def _record_table(seed, xs, ys, n=3000):
+    """Fragments each inside one record of ``xs`` and one of ``ys``."""
+    rng = np.random.default_rng(seed)
+    ln = rng.integers(1, 300, n).astype(np.int64)
+
+    def starts(seqs):
+        r = rng.integers(0, len(seqs.names), n)
+        return seqs.offsets[r] + rng.integers(0, seqs.lengths[r] - ln)
+
+    x0, y0 = starts(xs), starts(ys)
+    strand = rng.integers(0, 2, n)
+    frag = {"xStart": x0, "xEnd": x0 + ln - 1,
+            "yStart": np.where(strand == 0, y0, y0 + ln - 1),
+            "yEnd": np.where(strand == 0, y0 + ln - 1, y0),
+            "strand": strand, "length": ln,
+            "score": rng.integers(-100, 4000, n),
+            "idents": (ln * rng.uniform(0.5, 1.0, n)).astype(np.int64),
+            "group": rng.integers(0, 40, n)}
+    return torc.canonical_sort({f: v.astype(np.int32)
+                                for f, v in frag.items()})
+
+
+def _python_rows(frag, dst, monkeypatch, **kw):
+    """The CSV writer's Python rows: the writer without its library."""
+    with monkeypatch.context() as m:
+        m.setattr(tnative, "available", lambda: False)
+        tcsv.write_frags_csv(frag, dst, **kw)
+
+
+def _written(write, tmp_path, name):
+    """(bytes of ``write`` to a path, bytes of ``write`` to a stream)."""
+    path = str(tmp_path / name)
+    write(path)
+    buf = io.StringIO()
+    write(buf)
+    return open(path, "rb").read(), buf.getvalue().encode()
+
+
 @pytest.mark.parametrize("n,group", [(0, True), (1, True), (200, True),
-                                     (5000, True), (300, False)])
+                                     (5000, True), (300, False),
+                                     ("ties", True), ("edges", True),
+                                     (200_000, True)])
 @pytest.mark.parametrize("self_cmp", [True, False])
 def test_write_frags_csv_matches_reference_and_python(n, group, self_cmp,
-                                                      tmp_path):
-    frag = _random_table(n + 5, n, group)
+                                                      tmp_path, monkeypatch):
+    """The native writer to a path and to a stream, the Python rows and
+    the JAX package's writer (to a path and to a stream) give the same
+    bytes; the table of 200,000 rows is formatted on several threads."""
+    frag = {"ties": _tie_table, "edges": lambda: _edge_table(11)}.get(
+        n, lambda: _random_table(n + 5, n, group))()
+    n = int(frag["xStart"].shape[0])
     kw = dict(x_name="gx", x_len=10000, total_hits=777)
     if not self_cmp:
         kw.update(y_name="gy", y_len=9000)
-    native_path = str(tmp_path / "native.csv")
-    tcsv.write_frags_csv(frag, native_path, **kw)        # the native writer
-    buf = io.StringIO()
-    tcsv.write_frags_csv(frag, buf, **kw)                # the Python writer
-    ref_path = str(tmp_path / "ref.csv")
-    jcsv.write_frags_csv(frag, ref_path, **kw)
-    got = open(native_path, "rb").read()
-    assert got == buf.getvalue().encode()
-    assert got == open(ref_path, "rb").read()
+    got, streamed = _written(lambda d: tcsv.write_frags_csv(frag, d, **kw),
+                             tmp_path, "native.csv")
+    python = io.StringIO()
+    _python_rows(frag, python, monkeypatch, **kw)
+    ref, ref_streamed = _written(lambda d: jcsv.write_frags_csv(frag, d, **kw),
+                                 tmp_path, "ref.csv")
+    assert got.count(b"\nFrag,") == n
+    assert got == streamed == python.getvalue().encode()
+    assert got == ref == ref_streamed
     header = tcsv._render_header(n, kw["x_name"], kw.get("y_name"),
                                  kw["x_len"], kw.get("y_len", 0), 777)
     direct = str(tmp_path / "direct.csv")
-    assert tnative.write_frags_csv(direct, header, frag, self_cmp) == n
+    threads = tnative.write_frags_csv(direct, header, frag, self_cmp)
     assert open(direct, "rb").read() == got
+    assert 1 <= threads <= 8
+    if n < 8192 or (os.cpu_count() or 1) == 1:
+        assert threads == 1
+    else:
+        assert threads > 1
+
+
+@pytest.mark.parametrize("records", [2, 3])
+@pytest.mark.parametrize("self_cmp", [True, False])
+def test_write_frags_csv_multirecord_matches_reference_and_python(
+        records, self_cmp, tmp_path, monkeypatch):
+    """Multi-record tables (per-row record ids, and record-local
+    coordinates under coords="record") through the native writer, to a
+    path and to a stream, against the Python rows and the JAX package's
+    writer; read_frags_csv gives the table back. A cross comparison pairs
+    two records of X with one of Y (the seqY=1 convention), or three
+    with two."""
+    xs = _records(records, [5000, 700, 2600][:records])
+    ys = xs if self_cmp else _records(records + 10, [4000, 1800][:records - 1])
+    frag = _record_table(records, xs, ys)
+    for coords in ("concat", "record"):
+        kw = dict(x_name="gx", x_len=xs.total_length, total_hits=5,
+                  x_seqs=xs, coords=coords)
+        if not self_cmp:
+            kw.update(y_name="gy", y_len=ys.total_length, y_seqs=ys)
+        got, streamed = _written(
+            lambda d: tcsv.write_frags_csv(frag, d, **kw), tmp_path, "t.csv")
+        python = io.StringIO()
+        _python_rows(frag, python, monkeypatch, **kw)
+        ref, ref_streamed = _written(
+            lambda d: jcsv.write_frags_csv(frag, d, **kw), tmp_path, "j.csv")
+        assert got == streamed == python.getvalue().encode()
+        assert got == ref == ref_streamed
+        rows = [line.split(b",") for line in got.splitlines()
+                if line.startswith(b"Frag,")]
+        assert {int(r[12]) for r in rows} == set(range(records))
+        assert {int(r[13]) for r in rows} == (
+            set(range(len(ys.names))) if len(ys.names) > 1 else {1})
+        back = tcsv.read_frags_csv(got.decode())
+        for f in ("xStart", "yStart", "xEnd", "yEnd", "strand", "length",
+                  "score", "idents", "group"):
+            assert np.array_equal(back[f], frag[f]), (coords, f)
 
 
 def test_write_frags_csv_rejects_short_columns(tmp_path):

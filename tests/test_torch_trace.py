@@ -270,6 +270,39 @@ def test_writer_and_reader_spans(genome, tmp_path):
             assert counts["intervals"] == sum(len(v) for v in out.values())
         if name == "report.csv":
             assert counts["native"] == int(native.available())
+            assert counts["threads"] == 1           # a small table
+
+
+@pytest.mark.parametrize("records,n", [(2, 500), (1, 120_000),
+                                       (3, 120_000)])
+def test_csv_span_counts_native_and_threads(records, n, tmp_path):
+    """"report.csv" on a path: ``native`` 1 whenever the library is there,
+    multi-record tables too; ``threads``, the threads that formatted
+    rows, 1 on a small table and 1 to 8 on a large one."""
+    lengths = np.full(records, 40_000)
+    offs = np.arange(records) * 40_032
+    seqs = fasta.SeqSet(codes=np.zeros(int(offs[-1]) + 40_000, np.uint8),
+                        names=[f"c{i}" for i in range(records)],
+                        offsets=offs, lengths=lengths)
+    rng = np.random.default_rng(n)
+    start = (offs[rng.integers(0, records, n)]
+             + rng.integers(0, 39_000, n)).astype(np.int32)
+    ln = rng.integers(1, 1000, n).astype(np.int32)
+    frag = {"xStart": start, "xEnd": start + ln - 1, "yStart": start,
+            "yEnd": start + ln - 1, "strand": np.zeros(n, np.int32),
+            "length": ln, "score": ln, "idents": ln // 2,
+            "group": rng.integers(0, 50, n).astype(np.int32)}
+    res = api.Result(frag=frag, cfg=CFG, x=seqs)
+    path = tmp_path / "o.csv"
+    for coords in ("concat", "record"):
+        _, spans = _job(lambda: res.write_csv(str(path), coords=coords))
+        assert _names(spans) == {"report.csv": 1}
+        counts = spans[0]["counters"]
+        assert counts["rows"] == n and counts["bytes"] == path.stat().st_size
+        assert counts["native"] == int(native.available())
+        assert 1 <= counts["threads"] <= 8
+        if n < 8192:
+            assert counts["threads"] == 1
 
 
 def test_bed_span_counts_the_intervals_split_at_record_boundaries():
