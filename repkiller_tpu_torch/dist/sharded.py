@@ -211,11 +211,17 @@ def _one_strand_sharded(cx: dict, cx_pad: dict, idxX, cy_cmp: dict,
     """Sharded hits and per-window thinning and extension of one strand of
     a pairwise comparison: Y's index (of Y, or of revcomp(Y)) is built
     sharded here -> (stage-B outputs, {body: hit total}, Y's shard counts,
-    Y's build blk_over or None)."""
+    Y's build blk_over or None). Counters: ``entries`` on the index span
+    (Y's positions), ``queries`` on the hits span (the window k-mers
+    inside X that this process's bodies join)."""
     dev = _first(mesh.devices)
     with trace.span("sharded.index", device=dev):
+        trace.count("entries", _first(cy_cmp).shape[0] - cfg.k + 1)
         idxY, blk_over = _build_idx(cy_cmp, cfg, mesh, cap_shard)
     with trace.span("sharded.hits", device=dev):
+        n_pos = _first(cx).shape[0] - cfg.k + 1   # window d: from d * win on
+        trace.count("queries", sum(min(win, max(n_pos - b[0] * win, 0))
+                                   for b in cx_pad))
         hits = mesh.map(lambda b, c, iy, ix: _window_join(
             c, (iy[0], iy[1], iy[2][b[1]]), (ix[0], ix[2][b[1]]), b[0], win,
             cap_dev, cfg), cx_pad, idxY, idxX)
@@ -233,14 +239,22 @@ def _first(per_body: dict):
 def _pairwise_sharded(cx: dict, cy: dict, cx_pad: dict, cfg: Config,
                       mesh: Mesh, win: int, cap_dev: int, cap_shard: int):
     """Both requested strands of a sharded pairwise comparison against X's
-    sharded index -> as _self_canonical_sharded."""
-    with trace.span("sharded.index", device=_first(mesh.devices)):
+    sharded index -> as _self_canonical_sharded. Spans: X's
+    "sharded.index" (counter ``entries``), then per strand
+    "sharded.revcomp" (strand r's revcomp(Y)) and _one_strand_sharded's."""
+    dev = _first(mesh.devices)
+    with trace.span("sharded.index", device=dev):
+        trace.count("entries", _first(cx).shape[0] - cfg.k + 1)
         idxX, blkX = _build_idx(cx, cfg, mesh, cap_shard)
     shard_cnts = [_first(idxX)[2]]
     blk_overs = [] if blkX is None else [_first(blkX)]
     outs, totals = [], []
     for strand in _strands(cfg):
-        cy_cmp = cy if strand == 0 else mesh.replicate(revcomp_device(_first(cy)))
+        if strand == 0:
+            cy_cmp = cy
+        else:
+            with trace.span("sharded.revcomp", device=dev):
+                cy_cmp = mesh.replicate(revcomp_device(_first(cy)))
         out, tot, sc, bo = _one_strand_sharded(cx, cx_pad, idxX, cy_cmp, strand,
                                                cfg, mesh, win, cap_dev, cap_shard)
         outs.append(out), totals.append(tot), shard_cnts.append(sc)
